@@ -85,11 +85,9 @@ def _cp_options(CP_difTol, CP_itMax, PFDR_rho, PFDR_condMin, PFDR_difRcd,
 def _graph(Eu, Ev, La_d1, num_vertices, dtype, container: str = "coo"):
     """Builds the graph container.
 
-    ``container``: "coo" — plain :class:`GraphD1`; "circulant" — force the
-    shift-family decomposition (:class:`~..circulant.CirculantGraphD1`);
-    "auto" — pick the circulant container on TPU when the vertex numbering
-    concentrates the edge offsets enough for the gather-free fused kernel
-    to apply (>= 70% of edges on the top-64 offsets; relabel with
+    ``container``: "coo" (or "auto") — plain :class:`GraphD1`;
+    "circulant" — the shift-family decomposition
+    (:class:`~..circulant.CirculantGraphD1`; relabel with
     :func:`~..circulant.strip_order` first for mesh problems).
     """
     if container == "circulant":
@@ -97,21 +95,7 @@ def _graph(Eu, Ev, La_d1, num_vertices, dtype, container: str = "coo"):
         return CirculantGraphD1.create(Eu, Ev, La_d1,
                                        num_vertices=num_vertices,
                                        dtype=dtype)
-    if container == "auto":
-        import jax
-
-        from .circulant import (CirculantGraphD1, max_fused_vertices,
-                                offset_coverage)
-        v = num_vertices if num_vertices is not None else int(
-            max(np.max(Eu, initial=-1), np.max(Ev, initial=-1)) + 1)
-        vv = -(-v // 1024) * 1024
-        if (jax.default_backend() == "tpu" and len(np.asarray(Eu)) >= 4096
-                and vv <= max_fused_vertices()
-                and offset_coverage(Eu, Ev) >= 0.7):
-            return CirculantGraphD1.create(Eu, Ev, La_d1,
-                                           num_vertices=num_vertices,
-                                           dtype=dtype)
-    elif container != "coo":
+    if container not in ("auto", "coo"):
         raise ValueError(f"unknown container {container!r}")
     return GraphD1.create(Eu, Ev, La_d1, num_vertices=num_vertices,
                           dtype=dtype)

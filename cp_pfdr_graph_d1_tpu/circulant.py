@@ -1,34 +1,28 @@
 """Circulant-decomposition graph container: unstructured graphs as shifts.
 
-TPUs have no vector gather, so unstructured-graph PFDR is dominated by the
-endpoint gathers ``x[eu]``/``x[ev]`` (serial per-element loops in XLA) no
-matter how the arithmetic is arranged.  This container removes the gathers
-instead of accelerating them: after a locality-preserving vertex ordering
-(e.g. :func:`strip_order` on mesh coordinates, or :func:`.ops.banded
-.rcm_order`), most edges of a mesh fall on a few dozen distinct index
-offsets ``d = ev - eu``.  Edges are bucketed per offset into dense *shift
-families* — family ``f`` owns one slot per vertex ``u`` for the potential
-edge ``(u, u + d_f)`` — so an endpoint gather becomes a flat circular shift
-of the dense vertex field (``pltpu.roll``, a few VPU ops) and the
-edge->vertex accumulation becomes the inverse shift.  Offsets too rare to
-justify a dense family go to a COO *remainder* handled by a plain
-:class:`.graph.GraphD1` (measured ~96% family coverage at 64 families on a
-Delaunay mesh under :func:`strip_order`).
+After a locality-preserving vertex ordering (:func:`strip_order` on mesh
+coordinates, or :func:`rcm_order`), most edges of a mesh fall on a few
+dozen distinct index offsets ``d = ev - eu``.  This container buckets edges
+per offset into dense *shift families* — family ``f`` owns one slot per
+vertex ``u`` for the potential edge ``(u, u + d_f)`` — so an endpoint
+gather of a family is a flat circular shift of the vertex field.  Offsets
+too rare to justify a dense family go to a COO *remainder* (measured ~96%
+family coverage at 64 families on a Delaunay mesh under
+:func:`strip_order`).
 
 This is the unstructured generalization of the stencil container
 (:mod:`.stencil`): a stencil IS the special case where the offset set is
-the grid's shift families.  The whole PFDR iteration runs in one Pallas
-kernel over families (:mod:`.ops.circulant_fused`).
+the grid's shift families.  The solvers run it through the plain
+:class:`.graph.GraphD1` transfers (endpoint gathers, incidence-table
+accumulation) over the family-major edge order.
 
-Edge order contract: edge ``e = f * VV + u`` is family ``f``'s slot ``u``
-(``VV`` = padded vertex count; empty slots are inert weight-0 edges
-``(0, 0)``), followed by the remainder edges.  Per-edge solver quantities
-(preconditioner arrays, ``zu``/``zv``) follow this order, which is what
-lets the fused kernel consume them as dense ``[F, VV8, 128]`` blocks.
+Edge order contract: edge ``e = f * V + u`` is family ``f``'s slot ``u``
+(empty slots are inert weight-0 edges ``(0, 0)``), followed by the
+remainder edges.  Per-edge solver quantities (preconditioner arrays,
+``zu``/``zv``) follow this order.
 
 No reference counterpart: the reference reads scattered memory directly
-(``/root/reference/src/PFDR_graph_quadratic_d1_l1.cpp:466-497``); this is
-the TPU-native memory system for the same math.
+(``/root/reference/src/PFDR_graph_quadratic_d1_l1.cpp:466-497``).
 """
 from __future__ import annotations
 
@@ -39,7 +33,22 @@ import jax.numpy as jnp
 import numpy as np
 
 from .graph import GraphD1
-from .ops.circulant_fused import max_fused_vertices  # noqa: F401  (re-export)
+
+
+def rcm_order(eu, ev, num_vertices: int):
+    """Bandwidth-reducing vertex permutation (reverse Cuthill-McKee).
+
+    Returns ``order`` such that relabeling ``v -> inv[v]`` (with
+    ``inv = argsort(order)``) makes ``|eu - ev|`` small, which concentrates
+    the edge offsets.  Callers must permute every per-vertex quantity
+    (operator columns, weights) consistently.
+    """
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+    e = np.ones(len(eu), np.int8)
+    adj = coo_matrix((e, (eu, ev)), shape=(num_vertices, num_vertices))
+    adj = (adj + adj.T).tocsr()
+    return np.asarray(reverse_cuthill_mckee(adj, symmetric_mode=True))
 
 
 def strip_order(coords, nstrips: Optional[int] = None):
@@ -56,7 +65,7 @@ def strip_order(coords, nstrips: Optional[int] = None):
     cross-strip offsets — keep all strips same-direction).  Returns
     ``order`` (position -> old vertex index); relabel with
     ``inv[order] = arange(V)`` and permute every per-vertex quantity, as
-    with :func:`.ops.banded.rcm_order`.
+    with :func:`rcm_order`.
     """
     c = np.asarray(coords, np.float64)
     if c.ndim != 2 or c.shape[0] < 2:
@@ -71,19 +80,6 @@ def strip_order(coords, nstrips: Optional[int] = None):
     strip = np.minimum(rank // max(v // nstrips, 1), nstrips - 1)
     b = proj[:, 1] if proj.shape[1] > 1 else np.zeros(v)
     return np.lexsort((b, strip))
-
-
-def offset_coverage(eu, ev, max_families: int = 64) -> float:
-    """Fraction of edges whose index offset ``|ev - eu|`` falls on the
-    ``max_families`` most frequent offsets — the fraction the circulant
-    decomposition would serve gather-free.  Cheap O(E log E) probe used by
-    the ``container="auto"`` selection."""
-    d = np.abs(np.asarray(ev, np.int64) - np.asarray(eu, np.int64))
-    if d.size == 0:
-        return 0.0
-    _, counts = np.unique(d, return_counts=True)
-    counts = np.sort(counts)[::-1]
-    return float(counts[:max_families].sum()) / float(counts.sum())
 
 
 def _masked_incidence(eu, ev, real, num_vertices: int):
@@ -111,18 +107,15 @@ class CirculantGraphD1(GraphD1):
     """d1 graph decomposed into dense shift families + COO remainder."""
 
     def __init__(self, eu, ev, la_d1, num_vertices: int, incidence,
-                 offs_dev, rem_graph, offsets, vv8: int, axis_name=None):
+                 offsets, num_rem: int, axis_name=None):
         self.eu = eu
         self.ev = ev
         self.la_d1 = la_d1
         self.num_vertices = int(num_vertices)
         self.num_edges = int(eu.shape[0])
         self.incidence = incidence
-        self.offs_dev = offs_dev
-        self.rem_graph = rem_graph
         self.offsets = tuple(int(d) for d in offsets)
-        self.vv8 = int(vv8)
-        self.num_rem = 0 if rem_graph is None else rem_graph.num_edges
+        self.num_rem = int(num_rem)
         self.axis_name = axis_name
 
     @classmethod
@@ -168,10 +161,8 @@ class CirculantGraphD1(GraphD1):
         if nf == 0:
             raise ValueError("empty edge set")
 
-        vv8 = -(-v // 1024) * 8
-        vv = vv8 * 128
-        la_f = np.zeros((nf, vv), la.dtype)
-        assigned = np.zeros((nf, vv), bool)
+        la_f = np.zeros((nf, v), la.dtype)
+        assigned = np.zeros((nf, v), bool)
         rem_mask = np.ones(len(eu2), bool)
         for f, dd in enumerate(fam_offsets):
             sel = np.nonzero(d == dd)[0]
@@ -179,10 +170,9 @@ class CirculantGraphD1(GraphD1):
             la_f[f, uniq] = la[sel[first]]
             assigned[f, uniq] = True
             rem_mask[sel[first]] = False
-        eu_r = eu2[rem_mask].astype(np.int32)
-        ev_r = ev2[rem_mask].astype(np.int32)
+        eu_r = eu2[rem_mask]
+        ev_r = ev2[rem_mask]
         la_r = la[rem_mask]
-        num_real_rem = len(eu_r)
         coverage = 1.0 - len(eu_r) / max(len(eu2), 1)
         if coverage < 0.5:
             import warnings
@@ -191,136 +181,32 @@ class CirculantGraphD1(GraphD1):
                 f"edges with dense families ({len(eu_r)} of {len(eu2)} "
                 "edges fall to the COO remainder); relabel vertices with "
                 "a locality-preserving order (strip_order on coordinates, "
-                "or ops.banded.rcm_order) before building the graph",
+                "or rcm_order) before building the graph",
                 stacklevel=2)
 
-        # route the remainder through the banded container: its MXU-matmul
-        # scatter produces the dense [V] accumulation in tens of us where
-        # the [V, max_deg] incidence gather costs O(V * D) serial gather
-        # elements (~0.8 ms measured at EEG scale for a 2.6% remainder)
-        if num_real_rem:
-            from .banded_graph import BandedGraphD1
-            rem_graph = BandedGraphD1.create(eu_r, ev_r, la_r,
-                                             num_vertices=v, dtype=dtype)
-            eu_r = np.asarray(rem_graph.eu)
-            ev_r = np.asarray(rem_graph.ev)
-            la_r = np.asarray(rem_graph.la_d1)
-        else:
-            rem_graph = None
-
-        u_grid = np.broadcast_to(np.arange(vv, dtype=np.int64), (nf, vv))
+        u_grid = np.broadcast_to(np.arange(v, dtype=np.int64), (nf, v))
         eu_fam = np.where(assigned, u_grid, 0)
         ev_fam = np.where(assigned, u_grid + fam_offsets[:, None], 0)
         eu_full = np.concatenate([eu_fam.ravel(), eu_r]).astype(np.int32)
         ev_full = np.concatenate([ev_fam.ravel(), ev_r]).astype(np.int32)
         la_full = np.concatenate([la_f.ravel(), la_r])
-        real = np.concatenate([assigned.ravel(), la_r != 0])
+        real = np.concatenate([assigned.ravel(), np.ones(len(eu_r), bool)])
         incidence = _masked_incidence(eu_full, ev_full, real, v)
-        dinv = (vv - fam_offsets) % vv
-        offs_dev = jnp.asarray(np.stack(
-            [fam_offsets // 128, fam_offsets % 128, dinv // 128, dinv % 128],
-            axis=1).astype(np.int32))
         return cls(jnp.asarray(eu_full), jnp.asarray(ev_full),
                    jnp.asarray(la_full), v, jnp.asarray(incidence),
-                   offs_dev, rem_graph, fam_offsets, vv8)
-
-    # -- fused single-kernel PFDR iteration ----------------------------------
-
-    @property
-    def supports_fused(self):
-        from .ops.circulant_fused import (VMEM_BUDGET_BYTES,
-                                          max_fused_vertices)
-        if self.axis_name is not None:
-            return False
-        if self.vv8 * 128 > max_fused_vertices():
-            return False
-        if self.rem_graph is not None:
-            # remainder tile steps carry the banded-kernel temporaries
-            # (two live [tile, Wd8] row selectors); a wide window on a
-            # wide field must fall back to the staged path
-            from .ops.banded_fused import fused_vmem_bytes
-            plan = self.rem_graph.plan
-            if (fused_vmem_bytes(plan.tile, plan.wd8, self.vv8)
-                    > VMEM_BUDGET_BYTES):
-                return False
-        return True
-
-    def supports_fused_simplex(self, k: int) -> bool:
-        """True when the K-label fused circulant kernel applies
-        (:mod:`.ops.circulant_fused_simplex`): single-device container
-        whose ``(2K + ...)`` resident label planes fit the VMEM budget."""
-        from .ops.circulant_fused_simplex import max_fused_vertices_simplex
-        if self.axis_name is not None:
-            return False
-        return self.vv8 * 128 <= max_fused_vertices_simplex(k)
-
-    def _dense_v(self, arr, dtype):
-        v, vv = self.num_vertices, self.vv8 * 128
-        a = jnp.broadcast_to(arr, (v,)).astype(dtype)
-        if vv > v:
-            a = jnp.concatenate([a, jnp.zeros((vv - v,), dtype)])
-        return a.reshape(self.vv8, 128)
-
-    def fused_iteration(self, x, grad, pre, zu, zv, rho: float, vprox,
-                        interpret: bool):
-        """One fused edge+vertex PFDR step: shift families plus remainder
-        tiles in a single Pallas kernel
-        (:func:`.ops.circulant_fused.fused_circulant_iteration`)."""
-        from .ops.circulant_fused import fused_circulant_iteration
-        nf, vv8 = len(self.offsets), self.vv8
-        vv = vv8 * 128
-        split = nf * vv
-        v = self.num_vertices
-        dt = x.dtype
-
-        def fam(arr):
-            return arr[:split].reshape(nf, vv8, 128)
-
-        if self.num_rem:
-            plan = self.rem_graph.plan
-            t8 = plan.tile // 128
-            eshape = (plan.num_tiles * t8, 128)
-
-            def rem(arr):
-                return arr[split:].reshape(eshape)
-
-            starts8 = plan.starts8
-            tile_args = (plan.lur, plan.lul, plan.lvr, plan.lvl,
-                         rem(zu), rem(zv), rem(pre.wu), rem(pre.wv),
-                         rem(pre.w_d1u), rem(pre.w_d1v), rem(pre.th_d1))
-            nt, tile, wd8 = plan.num_tiles, plan.tile, plan.wd8
-        else:
-            starts8 = None
-            tile_args = (None,) * 11
-            nt, tile, wd8 = 0, 0, 0
-
-        xn, zuf, zvf, zur, zvr, num, den = fused_circulant_iteration(
-            self.offs_dev, starts8, fam(zu), fam(zv), fam(pre.wu),
-            fam(pre.w_d1u), fam(pre.th_d1),
-            *tile_args,
-            self._dense_v(x, dt), self._dense_v(grad, dt),
-            self._dense_v(pre.ga, dt), self._dense_v(pre.th_l1, dt),
-            nf=nf, vv8=vv8, nt=nt, tile=tile, wd8=wd8, nv=v,
-            rho=float(rho), vkind=vprox.kind, positivity=vprox.positivity,
-            lo=float(vprox.lo), hi=float(vprox.hi), interpret=interpret)
-        if self.num_rem:
-            return (xn.reshape(-1)[:v],
-                    jnp.concatenate([zuf.reshape(-1), zur.reshape(-1)]),
-                    jnp.concatenate([zvf.reshape(-1), zvr.reshape(-1)]),
-                    num, den)
-        return xn.reshape(-1)[:v], zuf.reshape(-1), zvf.reshape(-1), num, den
+                   fam_offsets, len(eu_r))
 
     # -- pytree protocol -----------------------------------------------------
 
     def tree_flatten(self):
-        children = (self.eu, self.ev, self.la_d1, self.incidence,
-                    self.offs_dev, self.rem_graph)
-        aux = (self.num_vertices, self.offsets, self.vv8, self.axis_name)
+        children = (self.eu, self.ev, self.la_d1, self.incidence)
+        aux = (self.num_vertices, self.offsets, self.num_rem,
+               self.axis_name)
         return children, aux
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        eu, ev, la_d1, incidence, offs_dev, rem_graph = children
-        num_vertices, offsets, vv8, axis_name = aux
-        return cls(eu, ev, la_d1, num_vertices, incidence, offs_dev,
-                   rem_graph, offsets, vv8, axis_name)
+        eu, ev, la_d1, incidence = children
+        num_vertices, offsets, num_rem, axis_name = aux
+        return cls(eu, ev, la_d1, num_vertices, incidence, offsets,
+                   num_rem, axis_name)

@@ -42,10 +42,6 @@ class PFDROptions:
         whenever the evolution falls below it.  0 disables reconditioning.
       dif_tol: stopping threshold on the relative iterate evolution.
       it_max: maximum number of iterations.
-      fused: "auto" runs the fused Pallas iteration kernel when the graph
-        supports it, the backend is TPU and the dtype is float32; "on"
-        forces it (interpreted off-TPU, for testing); "off" disables it.
-        The fused and unfused paths compute the same update.
       verbose: 0 silences the solver; a positive value prints an
         iteration/evolution progress line every ``verbose`` iterations
         from inside the jitted loop (host callback) — the analog of the
@@ -58,7 +54,6 @@ class PFDROptions:
     dif_rcd: float = 0.0
     dif_tol: float = 1e-4
     it_max: int = 10_000
-    fused: str = "auto"
     verbose: int = 0
 
 
@@ -99,14 +94,6 @@ class CPOptions:
         reduced solve at full accuracy (the reference's behavior,
         ``CP_PFDR_graph_quadratic_d1_l1.cpp:842-859``).
       inexact_cap: iteration cap for intermediate reduced solves.
-      chain: with ``cut="device"``, "auto" runs the ENTIRE outer loop in
-        one dispatch (cuts, components, contraction, reduced solves
-        chained inside one ``lax.while_loop`` — a handful of host round
-        trips per solve instead of two per CP iteration,
-        :mod:`..solvers.cut_pursuit_chain`) whenever the problem admits
-        it (TPU float32, non-duplex, unmonitored, small-solve geometry);
-        "on" forces it with interpreted kernels off-TPU (tests); "off"
-        keeps the per-iteration device loop.
     """
 
     dif_tol: float = 1e-3
@@ -120,12 +107,6 @@ class CPOptions:
     cut_it_max: int = 200_000
     inexact: str = "auto"
     inexact_cap: int = 3000
-    chain: str = "auto"
-    # chained loop only: number of full-graph PFDR iterations used to seed
-    # the initial partition from the iterate's jump set (costs milliseconds
-    # through the fused stencil kernel and skips the shattered-partition
-    # phase the reference's scalar init causes); 0 restores the scalar init
-    chain_init_pfdr: int = 600
 
 
 # Parameters used by the reference cut-pursuit solvers for the power-method

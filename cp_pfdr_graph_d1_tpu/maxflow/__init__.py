@@ -5,30 +5,25 @@ and inactive-edge weights ``w``, for the set ``U`` minimizing
 ``sum_{v in U} c_v + sum_{e in boundary(U)} w_e`` — the reference poses this
 as a Boykov-Kolmogorov s-t max-flow (``CP_PFDR_graph_quadratic_d1_l1.cpp:
 411-549``).  Here the solver is an original FIFO push-relabel implementation
-(``mincut.cpp``) compiled on first use; ``min_cut`` falls back to a Dinic
-implementation in Python when no C++ toolchain is available.
+(``mincut.cpp``) compiled on first use by :mod:`..native_build`;
+``min_cut`` falls back to a Dinic implementation in Python when no C++
+toolchain is available.
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
-import subprocess
 import warnings
 
 import numpy as np
 
+from ..native_build import build_library
+
 _DIR = pathlib.Path(__file__).resolve().parent
 _SRC = _DIR / "mincut.cpp"
-_SO = _DIR / "_libcpmincut.so"
 
 _lib = None
 _use_fallback = False
-
-
-def _build():
-    cmd = ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
-           "-o", str(_SO), str(_SRC)]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
 
 
 def _get_lib():
@@ -36,10 +31,7 @@ def _get_lib():
     if _lib is not None or _use_fallback:
         return _lib
     try:
-        if (not _SO.exists()
-                or _SO.stat().st_mtime < _SRC.stat().st_mtime):
-            _build()
-        lib = ctypes.CDLL(str(_SO))
+        lib = ctypes.CDLL(str(build_library("cpmincut", [_SRC])))
         lib.cp_steepest_cut.restype = ctypes.c_int
         lib.cp_steepest_cut.argtypes = [
             ctypes.c_int, ctypes.c_int,

@@ -3,9 +3,10 @@
 The reference computes the steepest cut with Boykov-Kolmogorov max-flow —
 sequential augmenting-path search over pointer-linked trees
 (``/root/reference/src/maxflow.cpp:484``), the one component of the
-pipeline with no literal TPU analog (SURVEY §7 "hard parts").  This module
-solves the same problem natively on device via the exact total-variation
-reformulation of min-cut (Chambolle 2005): the steepest-cut objective
+pipeline with no literal data-parallel analog (SURVEY §7 "hard parts").
+This module solves the same problem natively on device via the exact
+total-variation reformulation of min-cut (Chambolle 2005): the
+steepest-cut objective
 
     min_U  sum_{v in U} c_v  +  sum_{e in boundary(U)} w_e
 
@@ -18,8 +19,8 @@ set of a relaxed minimizer is an optimal cut.  The relaxation is solved
 with a diagonally preconditioned primal-dual hybrid gradient iteration
 (Pock & Chambolle 2011) — per iteration one endpoint gather, one clip, one
 incidence-gather accumulation and one clip, i.e. exactly the bulk
-edge/vertex map-reduce pattern the rest of this library runs at full TPU
-speed (no pointer chasing, no scatters).
+edge/vertex map-reduce pattern the rest of this library runs on device
+(no pointer chasing, no scatters).
 
 Certification: a feasible dual point ``z`` (|z| <= 1) lower-bounds every
 cut by ``sum_v min(0, (c + K^t z)_v)``; the iteration stops when the best

@@ -1,26 +1,27 @@
 """Native host solver for small reduced problems (C++ via ctypes).
 
-On accelerators the per-dispatch latency (tens of microseconds on a local
-chip, tens of milliseconds over a tunnel) dwarfs the math of cut-pursuit's
-reduced solves, whose size is the number of constant components (typically
-10..100).  ``pfdr_quadratic_d1_host`` runs the SAME preconditioned
-forward-Douglas-Rachford iteration as ``solvers/pfdr_quadratic.py`` in C++
-float64 on the host (``pfdr.cpp``, compiled on first use); cut-pursuit
-routes reduced problems below a crossover size here when the main backend
-is a TPU (see ``CPOptions.host_small``).
+On an accelerator the per-dispatch latency dwarfs the math of
+cut-pursuit's reduced solves, whose size is the number of constant
+components (typically 10..100).  ``pfdr_quadratic_d1_host`` runs the SAME
+preconditioned forward-Douglas-Rachford iteration as
+``solvers/pfdr_quadratic.py`` in C++ float64 on the host (``pfdr.cpp``,
+compiled on first use by :mod:`..native_build`); cut-pursuit routes
+reduced problems below a crossover size here when the main backend is not
+the CPU (see ``CPOptions.host_small``).  The same library is the float64
+reference the tests and ``chip_smoke.py`` check the device solvers against.
 """
 from __future__ import annotations
 
 import ctypes
 import pathlib
-import subprocess
 import warnings
 
 import numpy as np
 
+from ..native_build import build_library
+
 _DIR = pathlib.Path(__file__).resolve().parent
 _SRCS = [_DIR / "pfdr.cpp", _DIR / "pfdr_simplex.cpp"]
-_SO = _DIR / "_libcppfdr.so"
 
 _lib = None
 _unavailable = False
@@ -29,22 +30,12 @@ _F64 = np.ctypeslib.ndpointer(np.float64, flags="C")
 _I32 = np.ctypeslib.ndpointer(np.int32, flags="C")
 
 
-def _build():
-    cmd = ["g++", "-O3", "-march=native", "-fPIC", "-shared", "-std=c++17",
-           "-o", str(_SO)] + [str(src) for src in _SRCS]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-
-
 def _get_lib():
     global _lib, _unavailable
     if _lib is not None or _unavailable:
         return _lib
     try:
-        if (not _SO.exists() or any(
-                _SO.stat().st_mtime < src.stat().st_mtime
-                for src in _SRCS)):
-            _build()
-        lib = ctypes.CDLL(str(_SO))
+        lib = ctypes.CDLL(str(build_library("cppfdr", _SRCS)))
         lib.native_pfdr_quadratic_d1.restype = ctypes.c_int
         lib.native_pfdr_quadratic_d1.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int,

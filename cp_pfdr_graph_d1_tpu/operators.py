@@ -10,7 +10,7 @@ The reference encodes the operator mode in the *sign* of ``N``
   absent; ``obs = A^t y``.  This is the "l22" weighted-distance case.
 
 Here each mode is an explicit operator class with one shared interface; all
-heavy products are MXU matmuls under jit.  ``obs`` keeps the reference's
+heavy products are matmuls under jit.  ``obs`` keeps the reference's
 mode-dependent meaning (``y`` for :class:`DenseOp`, ``A^t y`` otherwise).
 """
 from __future__ import annotations
@@ -21,12 +21,12 @@ import jax
 import jax.numpy as jnp
 
 # Solver math is convergent optimization, not NN training: f32 inputs must
-# get IEEE-f32 products.  The TPU MXU's DEFAULT precision truncates f32
-# operands to bfloat16 (~8 mantissa bits), which caps solve accuracy at
-# ~1e-3 relative — measured to break cut-pursuit partition quality (the
-# merge/cut decisions feed on ~1e-4-relative value differences).  All
-# operator products therefore run at HIGHEST precision; the hot Pallas
-# kernels choose their precision per-dot instead.
+# get IEEE-f32 products.  DEFAULT matmul precision lets the accelerator
+# round f32 operands (TF32 on GPU tensor cores, ~10 mantissa bits), which
+# caps solve accuracy at ~1e-3 relative — enough to break cut-pursuit
+# partition quality (the merge/cut decisions feed on ~1e-4-relative value
+# differences).  All operator products therefore run at HIGHEST
+# precision.
 _mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 _vdot = partial(jnp.vdot, precision=jax.lax.Precision.HIGHEST)
 

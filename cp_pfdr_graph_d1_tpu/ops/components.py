@@ -3,7 +3,7 @@
 The reference finds the components of the inactive-edge subgraph with a
 serial DFS (``/root/reference/src/CP_PFDR_graph_quadratic_d1_l1.cpp:
 570-596``); the host path here uses scipy for the same result.  This is
-the TPU-native alternative: bulk-synchronous *minimum-label propagation*
+the device alternative: bulk-synchronous *minimum-label propagation*
 (each vertex adopts the smallest label among itself and its neighbors
 across unmasked edges) accelerated by *pointer jumping*
 (``l <- l[l]``), converging in O(log V) rounds — the classic

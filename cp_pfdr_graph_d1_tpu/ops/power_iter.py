@@ -2,8 +2,8 @@
 
 Reference: ``/root/reference/src/operator_norm_matrix.cpp:85-212`` runs
 ``nbInit`` independent random power iterations (one per OpenMP thread) on
-``A^t A`` and returns the largest limit.  TPU-native version: all restarts run
-as *columns of one matrix*, so every iteration is a single MXU matmul; the
+``A^t A`` and returns the largest limit.  Here all restarts run as
+*columns of one matrix*, so every iteration is a single matmul; the
 PRNG is a fixed, explicit JAX key so results are reproducible.
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-# IEEE-f32 products: the MXU's default bf16 truncation perturbs the
+# IEEE-f32 products: a reduced-precision (TF32) matmul perturbs the
 # estimated norm (and hence the PFDR step sizes) at ~1e-3 relative
 _mm = partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 

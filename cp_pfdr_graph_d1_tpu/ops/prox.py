@@ -10,7 +10,7 @@ Reference behaviors reproduced:
   (``/root/reference/src/proj_simplex_metric.cpp:19-83``) — the reference uses
   iterative active-set thresholding; here we use the exact sort-based
   algorithm, which is branch-free and fully vectorized over vertices (K is
-  small, so the per-vertex sort is cheap on the VPU).
+  small, so the per-vertex work is a few elementwise passes).
 """
 from __future__ import annotations
 
@@ -48,7 +48,7 @@ def proj_simplex_metric(x, metric, target=1.0):
     unrolled passes are exact.  This is the same scheme as the reference
     (``proj_simplex_metric.cpp:46-72``) and, unlike a sort-based
     formulation, uses only elementwise ops and K-axis reductions (sorts and
-    ``take_along_axis`` lower to serial gathers on TPU).
+    ``take_along_axis`` add a per-row gather).
     """
     x = jnp.asarray(x)
     m = jnp.broadcast_to(jnp.asarray(metric, x.dtype), x.shape)

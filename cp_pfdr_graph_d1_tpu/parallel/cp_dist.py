@@ -2,15 +2,14 @@
 
 The reference cut-pursuit is single-process OpenMP only
 (``/root/reference/src/CP_PFDR_graph_quadratic_d1_l1.cpp:212``,
-SURVEY §2.6); multi-chip operation is a new capability, targeted at the
-large-dense-operator / precomputed-``A^t A`` fused-LASSO configuration
-(BASELINE.json config 5).
+SURVEY §2.6); multi-device operation is a new capability, targeted at the
+large-dense-operator / precomputed-``A^t A`` fused-LASSO configuration.
 
 Design.  Every FLOP-heavy stage of the outer loop — the full-graph
 gradient ``A^t (A x - y)`` (``CP_PFDR_graph_quadratic_d1_l1.cpp:339-374``),
 the one-hot reduced-operator contraction (``:663-772``), the power-method
 Lipschitz metric (``:774-836``) and the reduced PFDR solve — is already an
-MXU matmul pipeline under ``jax.jit``.  Distributing them is therefore a
+matmul pipeline under ``jax.jit``.  Distributing them is therefore a
 *data placement* problem, solved the idiomatic XLA way: place the operator
 with a :class:`~jax.sharding.NamedSharding` over the mesh and let the SPMD
 partitioner insert the collectives.  Per CP iteration that is one [V]
@@ -103,7 +102,7 @@ def cp_loss_d1_simplex_dist(graph: GraphD1, q, mesh: Mesh, *, al: float,
 
     The O(V K) stages — the loss gradient
     (``CP_PFDR_graph_loss_d1_simplex.cpp:327-354``) and the reduced
-    barycenter contraction (``:733-766``, a one-hot MXU matmul) — run as
+    barycenter contraction (``:733-766``, a one-hot matmul) — run as
     jitted GSPMD ops on the sharded observation (each chip computes its
     row block; the contraction all-reduces [rV, K]); the combinatorial
     alpha-expansion cuts stay replicated on host, as in the quadratic

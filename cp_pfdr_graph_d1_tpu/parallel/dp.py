@@ -11,7 +11,7 @@ new capability.  Partitioning chosen here for the full-graph PFDR solve:
   the edge->vertex averaging is a local gather-sum followed by a ``psum``;
 * the iterate ``x`` ([V]) is replicated: vertex-wise work is tiny compared
   to the edge/observation work, and replication makes the two collectives
-  above the *only* communication per iteration, riding ICI.
+  above the *only* communication per iteration.
 
 A vertex-block partition with halo exchange (for graphs too large to
 replicate ``x``) is the natural extension of the same structure.

@@ -1,14 +1,15 @@
 """Vertex-block (halo-exchange) distribution of stencil-graph PFDR.
 
 The scaling story of SURVEY §5: partition the vertex field into contiguous
-row blocks, one per chip; per-edge work is local except at block
-boundaries, where each chip exchanges a halo of ``max |dy|`` rows with its
-ring neighbors via ``lax.ppermute`` over ICI.  Unlike the replicated-x data
-parallelism in :mod:`.dp`, the iterate itself is sharded, so the graph can
-exceed single-chip memory; the only per-iteration communication is the
+row blocks, one per device; per-edge work is local except at block
+boundaries, where each device exchanges a halo of ``max |dy|`` rows with
+its ring neighbors via ``lax.ppermute`` (NCCL between GPUs).  Unlike the
+replicated-x data parallelism in :mod:`.dp`, the iterate itself is sharded,
+so the graph can
+exceed single-device memory; the only per-iteration communication is the
 halo exchange (O(W) words) plus scalar psums for the stopping test.
 
-The dense operator is column-sharded to match: each chip holds the columns
+The dense operator is column-sharded to match: each device holds the columns
 of ``A`` for its vertex rows; ``A x`` is a local matmul + psum, the adjoint
 and Gram diagonal are purely local.
 """
@@ -41,14 +42,10 @@ class HaloStencilGraphD1(StencilGraphD1):
     the first/last blocks, making the wrapped halo inert.
     """
 
-    def __init__(self, la_d1, field_shape, shifts, wrap, axis_name: str,
-                 num_shards: int | None = None):
+    def __init__(self, la_d1, field_shape, shifts, wrap, axis_name: str):
         super().__init__(la_d1, field_shape, shifts, wrap)
         self.shard_axis = axis_name
         self.halo = max((abs(dy) for dy, _ in self.shifts), default=0)
-        # static ring size: required by the halo-overlapped Pallas kernel
-        # (RDMA neighbor ids need a trace-time constant)
-        self.num_shards = num_shards
 
     # -- halo exchange ------------------------------------------------------
 
@@ -104,63 +101,14 @@ class HaloStencilGraphD1(StencilGraphD1):
     def vertex_count_global(self):
         return self.num_vertices * jax.lax.psum(1, self.shard_axis)
 
-    @property
-    def supports_fused(self):
-        # boundary rolls cross shard boundaries; the single-block fused
-        # kernel does not apply (the quadratic staged loop instead uses
-        # the halo-overlapped kernel below via ``supports_halo_fused``)
-        return False
-
-    @property
-    def supports_halo_fused(self):
-        """True when the halo-overlapped Pallas iteration kernel applies
-        (``ops/halo_fused``): RDMA boundary exchange overlapped with the
-        interior edge compute — the SURVEY §5 design."""
-        from ..ops.halo_fused import max_halo_fused_field_elems
-        h, w = self.field_shape
-        return (self.num_shards is not None and self.halo >= 1
-                and self.halo <= h
-                and h * w <= max_halo_fused_field_elems(len(self.shifts)))
-
-    def fused_iteration(self, x, grad, pre, zu, zv, rho: float, vprox,
-                        interpret: bool):
-        """One halo-overlapped edge+vertex PFDR step on this local row
-        block (inside shard_map); stopping-test reductions are psum'd to
-        match the staged path's global semantics."""
-        import jax as _jax
-
-        from ..ops.halo_fused import halo_fused_iteration
-        h, w = self.field_shape
-        f = len(self.shifts)
-
-        def rv(a):
-            return a.reshape(h, w)
-
-        def re(a):
-            return a.reshape(f, h, w)
-
-        xn, zun, zvn, num, den = halo_fused_iteration(
-            rv(x), rv(grad), rv(pre.ga), rv(pre.th_l1),
-            re(zu), re(zv), re(pre.wu), re(pre.wv),
-            re(pre.w_d1u), re(pre.w_d1v), re(pre.th_d1),
-            shifts=self.shifts, hd=self.halo, rho=rho, vkind=vprox.kind,
-            positivity=vprox.positivity, lo=float(vprox.lo),
-            hi=float(vprox.hi), axis=self.shard_axis,
-            nshards=int(self.num_shards), interpret=interpret)
-        e = self.num_edges
-        return (xn.reshape(-1), zun.reshape(e), zvn.reshape(e),
-                _jax.lax.psum(num, self.shard_axis),
-                _jax.lax.psum(den, self.shard_axis))
-
     def tree_flatten(self):
         return (self.la_d1,), (self.field_shape, self.shifts, self.wrap,
-                               self.shard_axis, self.num_shards)
+                               self.shard_axis)
 
     @classmethod
     def tree_unflatten(cls, aux, children):
-        field_shape, shifts, wrap, axis_name, num_shards = aux
-        return cls(children[0], field_shape, shifts, wrap, axis_name,
-                   num_shards)
+        field_shape, shifts, wrap, axis_name = aux
+        return cls(children[0], field_shape, shifts, wrap, axis_name)
 
 
 @jax.tree_util.register_pytree_node_class
@@ -248,8 +196,7 @@ def pfdr_quadratic_d1_halo(problem: HaloShardedProblem, mesh: Mesh, *,
     def solve(a_loc, la_loc, la_l1_loc, obs):
         op = ColShardDenseOp(a_loc[0], axis)
         graph = HaloStencilGraphD1(la_loc[0], (h_loc, w), problem.shifts,
-                                   problem.wrap, axis,
-                                   num_shards=num_shards)
+                                   problem.wrap, axis)
         res = pfdr_quadratic_d1(op, obs, graph,
                                 la_l1=la_l1_loc[0] if has_l1 else None,
                                 vprox=vprox, lipsch=lipsch, ltype=ltype,
@@ -284,7 +231,7 @@ def shard_stencil_simplex_problem(q, graph: StencilGraphD1,
                                   la_f=None) -> HaloSimplexProblem:
     """Row-block partition of a multi-label stencil problem: both the
     [V, K] observation/iterate and the per-(edge,label) work are sharded,
-    so graphs can exceed single-chip memory; per-iteration communication is
+    so graphs can exceed single-device memory; per-iteration communication is
     the O(W K) halo exchange."""
     h, w = graph.field_shape
     if h % num_shards:

@@ -1,9 +1,11 @@
-"""Mesh and multi-host (DCN) helpers.
+"""Mesh and multi-process helpers.
 
 The reference's only parallelism is intra-process OpenMP
 (``compute_num_threads``, e.g. ``PFDR_graph_quadratic_d1_l1.cpp:31-41``).
-The TPU-native equivalent is a ``jax.sharding.Mesh`` over real or virtual
-devices; collectives ride ICI within a slice and DCN across hosts.
+The equivalent here is a ``jax.sharding.Mesh`` over real or virtual
+devices.  The GPUs of one host are joined all to all (NVLink), so every
+solver uses the flat 1-D mesh of :func:`make_mesh`; XLA lowers its
+collectives to NCCL.
 
 Multi-host execution: each host process calls
 :func:`initialize_distributed` once at startup (before any other JAX
@@ -27,14 +29,12 @@ def initialize_distributed(coordinator_address: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None,
                            local_device_count: int | None = None) -> None:
-    """Initializes JAX multi-process (DCN) execution for this process.
+    """Initializes JAX multi-process execution for this process.
 
-    On TPU pods all arguments are auto-detected from the environment and
-    this reduces to ``jax.distributed.initialize()``.  For CPU-based
-    testing/fleets, pass an explicit coordinator (``"host:port"``),
-    process count and id; ``local_device_count`` forces that many virtual
-    CPU devices per process, and the gloo collectives backend is selected
-    so cross-process psum/ppermute work on CPU.
+    Pass an explicit coordinator (``"host:port"``), process count and
+    id; ``local_device_count`` forces that many virtual CPU devices per
+    process, and the gloo collectives backend is selected so
+    cross-process psum/ppermute work on CPU.
 
     Must be called before any other JAX API touches the backend.
     """
@@ -74,7 +74,7 @@ def make_mesh(num_devices: int | None = None, axis: str = "dp"):
 
 def make_hybrid_mesh(axis: str = "dp", host_axis: str = "host"):
     """2-D ``(host, device)`` mesh: the ``axis`` dimension stays inside a
-    process (ICI on real hardware), ``host_axis`` crosses processes (DCN).
+    process, ``host_axis`` crosses processes (the slower interconnect).
     Lay fast collectives on ``axis`` and slow/rare ones on ``host_axis``.
     Falls back to a 1-D mesh when running single-process.
     """

@@ -78,7 +78,7 @@ def _loss_grad_device(q, p_full, al: float):
 @partial(jax.jit, static_argnames=("rv_cap",))
 def _reduce_obs_device(q, cv, rv_cap: int):
     """Reduced observations on device: component sums of ``q`` rows and
-    component sizes as one-hot MXU contractions
+    component sizes as one-hot matmul contractions
     (``CP_PFDR_graph_loss_d1_simplex.cpp:733-766``).  Under GSPMD with
     ``q`` sharded over the vertex axis this is a local matmul + psum."""
     s = jax.nn.one_hot(cv, rv_cap, dtype=q.dtype)

@@ -16,10 +16,10 @@ reconditioning with subgradient preservation — follow the reference exactly
 (``PFDR_graph_quadratic_d1_l1.cpp:57-268`` for the preconditioner and
 ``:353-532`` for the iteration).
 
-TPU mapping: the whole solve is one jitted ``lax.while_loop``; the per-edge
-prox is a vectorized map over ``E``; the serial edge->vertex scatter of the
-reference (:492-497) becomes a deterministic sorted segment-sum; the dense
-A applications are MXU matmuls.
+Device mapping: the whole solve is one jitted ``lax.while_loop``; the
+per-edge prox is a vectorized map over ``E``; the serial edge->vertex
+scatter of the reference (:492-497) becomes the graph container's
+edge->vertex reduction; the dense A applications are matmuls.
 """
 from __future__ import annotations
 
@@ -222,94 +222,6 @@ def _grad_and_obj(op: QuadOp, x, obs):
     return op.grad(x, obs), op.quad_obj(x, obs)
 
 
-def _whole_solve_kind(op: QuadOp, graph) -> str | None:
-    """Operator kind for the whole-solve Pallas kernel
-    (:mod:`..ops.solve_fused`), or None when unsupported."""
-    from ..banded_graph import BandedGraphD1
-    from ..operators import DenseOp, DiagOp, GramOp, IdentityOp
-    if not isinstance(graph, BandedGraphD1) or graph.axis_name is not None:
-        return None
-    if isinstance(op, DenseOp):
-        return "dense"
-    if isinstance(op, GramOp):
-        return "gram"
-    if isinstance(op, (DiagOp, IdentityOp)):
-        return "diag"
-    return None
-
-
-def _whole_solve(op: QuadOp, obs, graph, vprox: VertexProx,
-                 pre: Precond, x0, opt: PFDROptions, interpret: bool,
-                 op_kind: str, zuzv0=None, it0=0):
-    """Dispatches the complete solve to the one-kernel Pallas loop
-    (:func:`..ops.solve_fused.fused_pfdr_solve`); same update math as the
-    staged loop below."""
-    from ..operators import DenseOp, GramOp, IdentityOp
-    from ..ops.banded import _to_dense_v
-    from ..ops.solve_fused import fused_pfdr_solve
-
-    p = graph.plan
-    t8 = p.tile // 128
-    v8 = p.v8
-    vv = v8 * 128
-    nv = graph.num_vertices
-    dt = obs.dtype
-    eshape = (p.num_tiles * t8, 128)
-
-    def vfield(a):
-        return _to_dense_v(jnp.broadcast_to(a, (nv,)).astype(dt), v8)
-
-    def pad_cols(m):
-        return m if m.shape[1] == vv else jnp.pad(
-            m, ((0, 0), (0, vv - m.shape[1])))
-
-    if op_kind == "dense":
-        n = op.a.shape[0]
-        np_pad = -(-n // 128) * 128
-        a_pad = pad_cols(jnp.pad(op.a, ((0, np_pad - n), (0, 0))))
-        op_a = a_pad.T
-        op_b = a_pad
-        aty = vfield(op.apply_t(obs))
-    elif op_kind == "gram":
-        np_pad = 128
-        g = pad_cols(op.gram)
-        op_a = jnp.pad(g, ((0, vv - g.shape[0]), (0, 0)))
-        op_b = jnp.zeros((8, 128), dt)
-        aty = vfield(obs)
-    else:
-        np_pad = 128
-        diag = (jnp.ones((nv,), dt) if isinstance(op, IdentityOp)
-                else op.diag)
-        op_a = vfield(diag)
-        op_b = jnp.zeros((8, 128), dt)
-        aty = vfield(obs)
-
-    if zuzv0 is None:
-        zu0, zv0 = graph.gather_endpoints(x0)
-    else:
-        zu0, zv0 = zuzv0  # resume: auxiliary pairs from a saved state
-
-    def efield(a):
-        return a.reshape(eshape)
-
-    eps_mach = float(jnp.finfo(dt).eps)
-    eps = opt.dif_tol if (0 < opt.dif_tol < eps_mach) else eps_mach
-    xn, zun, zvn, it, dif = fused_pfdr_solve(
-        p.starts8, p.lur, p.lul, p.lvr, p.lvl,
-        efield(zu0), efield(zv0), efield(pre.wu), efield(pre.wv),
-        efield(pre.w_d1u), efield(pre.w_d1v), efield(pre.th_d1),
-        vfield(x0), vfield(pre.ga), vfield(pre.th_l1), aty, op_a, op_b,
-        nt=p.num_tiles, tile=p.tile, wd8=p.wd8, v8=v8, np_pad=np_pad,
-        op_kind=op_kind, rho=float(opt.rho), vkind=vprox.kind,
-        positivity=vprox.positivity, lo=float(vprox.lo),
-        hi=float(vprox.hi), it_max=int(opt.it_max) - it0,
-        dif_tol2=float(opt.dif_tol) ** 2, eps=eps, rv=nv,
-        interpret=interpret)
-    x = xn.reshape(-1)[:nv]
-    e = graph.num_edges
-    return x, zun.reshape(-1)[:e], zvn.reshape(-1)[:e], it + it0, dif
-
-
 def _full_obj(op: QuadOp, x, obs, graph: GraphD1, la_l1, vprox: VertexProx):
     """Objective: quadratic + d1 + (l1) terms
     (``PFDR_graph_quadratic_d1_l1.cpp:388-422``; the reference's stale-index
@@ -380,111 +292,7 @@ def pfdr_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
     else:
         pre = initial_precondition(op, obs, graph, la_l1, opt.rho, lipsch,
                                    ltype)
-
-    if True:
-
-        # whole-solve Pallas loop (banded graphs; no reconditioning /
-        # monitor / verbose / resume): the ENTIRE iteration loop runs
-        # inside one kernel with all state VMEM-resident — zero dispatch
-        # and op-launch overhead per iteration (:mod:`..ops.solve_fused`)
-        whole_blocked = (opt.fused != "off"
-                         and (monitor or opt.verbose != 0
-                              or opt.dif_rcd != 0)
-                         and _whole_solve_kind(op, graph) is not None)
-        if whole_blocked:
-            # only warn when the unmonitored run would actually take the
-            # whole-solve route: same backend/dtype/geometry admission as
-            # the dispatch below (a VMEM-rejected or non-TPU/non-f32 run
-            # takes the staged loop either way, so there is no divergence
-            # to warn about)
-            wk = _whole_solve_kind(op, graph)
-            from ..ops.solve_fused import supports_fused_solve
-            p = graph.plan
-            np_pad = (-(-op.a.shape[0] // 128) * 128
-                      if wk == "dense" else 128)
-            admitted = supports_fused_solve(p.num_tiles, p.tile, p.wd8,
-                                            p.v8, np_pad, wk)
-            on_tpu = jax.default_backend() == "tpu"
-            admitted = admitted and (opt.fused == "on"
-                                     or (on_tpu and dtype == jnp.float32))
-            whole_blocked = admitted
-        if whole_blocked:
-            # the staged loop computes the SAME per-iteration update, but
-            # dispatches ~20 ops/iteration instead of one kernel — make
-            # the path switch loud so traced timings are not mistaken for
-            # production performance (monitoring contract, SURVEY §2.5)
-            import warnings
-            warnings.warn(
-                "monitor/verbose/dif_rcd forces the staged PFDR loop; "
-                "production (unmonitored) runs use the one-kernel "
-                "whole-solve path, which is faster — do not compare "
-                "timings across the two", RuntimeWarning, stacklevel=2)
-        if (opt.fused != "off" and opt.dif_rcd == 0 and not monitor
-                and opt.verbose == 0):
-            whole_kind = _whole_solve_kind(op, graph)
-            if whole_kind is not None:
-                from ..ops.solve_fused import supports_fused_solve
-                p = graph.plan
-                np_pad = (-(-op.a.shape[0] // 128) * 128
-                          if whole_kind == "dense" else 128)
-                if not supports_fused_solve(p.num_tiles, p.tile, p.wd8,
-                                            p.v8, np_pad, whole_kind):
-                    whole_kind = None
-            if whole_kind is not None:
-                on_tpu = jax.default_backend() == "tpu"
-                if opt.fused == "on":
-                    interp = not on_tpu
-                elif on_tpu and dtype == jnp.float32:
-                    interp = False
-                else:
-                    whole_kind = None
-                    interp = False
-            if whole_kind is not None:
-                try:
-                    x, zu, zv, it, dif = _whole_solve(
-                        op, obs, graph, vprox, pre, x0, opt, interp,
-                        whole_kind,
-                        zuzv0=(zu, zv) if state0 is not None else None,
-                        it0=(state0.it if state0 is not None else 0))
-                    jax.block_until_ready(x)
-                except Exception as ex:  # noqa: BLE001
-                    # VMEM admission is an estimate; Mosaic's allocator is
-                    # the authority.  Compile failure near the boundary
-                    # falls back to the staged loop (interpret re-raises:
-                    # that mode exists for tests)
-                    if interp:
-                        raise
-                    import warnings
-                    warnings.warn(
-                        "whole-solve kernel failed to compile "
-                        f"({type(ex).__name__}); using the staged loop",
-                        RuntimeWarning)
-                else:
-                    res = PFDRResult(x=x, it=it,
-                                     obj=jnp.zeros((1,), dtype),
-                                     dif=jnp.zeros((1,), dtype))
-                    if return_state:
-                        return res, PFDRSolveState(
-                            x=x, zu=zu, zv=zv, pre=pre, x_prev=x, dif=dif,
-                            dif_rcd2=jnp.asarray(0.0, dtype),
-                            it=it.astype(jnp.int32))
-                    return res
-
-        if state0 is None:
-            zu, zv = graph.gather_endpoints(x0)
-
-    # fused Pallas iteration (stencil graphs): one kernel for the edge +
-    # vertex stage instead of ~10F small XLA fusions; vertex-sharded halo
-    # graphs route to the RDMA-overlapped halo kernel instead
-    if opt.fused == "off" or not (
-            getattr(graph, "supports_fused", False)
-            or getattr(graph, "supports_halo_fused", False)):
-        fused_mode = None
-    elif opt.fused == "on":
-        fused_mode = "interpret" if jax.default_backend() != "tpu" else "tpu"
-    else:  # auto
-        fused_mode = ("tpu" if (jax.default_backend() == "tpu"
-                                and dtype == jnp.float32) else None)
+        zu, zv = graph.gather_endpoints(x0)
 
     n_trace = opt.it_max + 1 if monitor else 1
     state = PFDRState(
@@ -529,27 +337,22 @@ def pfdr_quadratic_d1(op: QuadOp, obs, graph: GraphD1, *,
         else:
             pre, zu, zv, dif_rcd2 = s.pre, s.zu, s.zv, s.dif_rcd2
 
-        if fused_mode is not None:
-            x, zu, zv, num, den = graph.fused_iteration(
-                s.x, grad, pre, zu, zv, float(opt.rho), vprox,
-                interpret=fused_mode == "interpret")
-        else:
-            # forward step P = 2 X - Ga grad (:463-464)
-            p = 2.0 * s.x - pre.ga * grad
-            # per-edge d1 prox on auxiliary pairs, with relaxation (:466-489)
-            pxu, pxv = graph.gather_endpoints(jnp.stack([p, s.x], axis=-1))
-            au = pxu[..., 0] - zu
-            av = pxv[..., 0] - zv
-            pu, pv = d1_pair_prox(au, av, pre.w_d1u, pre.w_d1v, pre.th_d1)
-            zu = zu + rho * (pu - pxu[..., 1])
-            zv = zv + rho * (pv - pxv[..., 1])
-            # weighted average back to the iterate (:491-497)
-            x = graph.edge_to_vertex_sum(pre.wu * zu, pre.wv * zv)
-            # vertex prox (:499-512)
-            x = _vertex_prox(x, vprox, pre.th_l1)
-            delta = x - s.x_prev
-            num = graph.vertex_allsum(delta * delta)
-            den = graph.vertex_allsum(x * x)
+        # forward step P = 2 X - Ga grad (:463-464)
+        p = 2.0 * s.x - pre.ga * grad
+        # per-edge d1 prox on auxiliary pairs, with relaxation (:466-489)
+        pxu, pxv = graph.gather_endpoints(jnp.stack([p, s.x], axis=-1))
+        au = pxu[..., 0] - zu
+        av = pxv[..., 0] - zv
+        pu, pv = d1_pair_prox(au, av, pre.w_d1u, pre.w_d1v, pre.th_d1)
+        zu = zu + rho * (pu - pxu[..., 1])
+        zv = zv + rho * (pv - pxv[..., 1])
+        # weighted average back to the iterate (:491-497)
+        x = graph.edge_to_vertex_sum(pre.wu * zu, pre.wv * zv)
+        # vertex prox (:499-512)
+        x = _vertex_prox(x, vprox, pre.th_l1)
+        delta = x - s.x_prev
+        num = graph.vertex_allsum(delta * delta)
+        den = graph.vertex_allsum(x * x)
 
         # relative iterate evolution (:514-529)
         num = num.astype(dtype)

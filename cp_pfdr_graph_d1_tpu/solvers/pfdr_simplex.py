@@ -15,11 +15,9 @@ with the loss keyed on the scalar ``al`` exactly as the reference
   ``KL(al/K + (1-al) q, al/K + (1-al) p)``.
 
 State is laid out vertex-major ``[V, K]`` (same memory convention as the
-reference's ``P[v*K+k]``), giving clean [E, K] edge slabs on the VPU; the
+reference's ``P[v*K+k]``), giving contiguous [E, K] edge slabs; the
 per-vertex prox is the exact (Michelot active-set) simplex projection in
-the metric ``Gamma`` (:mod:`..ops.prox`).  On TPU stencil graphs the whole
-iteration runs as one fused Pallas kernel
-(:mod:`..ops.stencil_fused_simplex`).
+the metric ``Gamma`` (:mod:`..ops.prox`).
 """
 from __future__ import annotations
 
@@ -229,224 +227,6 @@ def _ml_labels(p):
     return jnp.argmax(p, axis=-1)
 
 
-def _simplex_fused_loop(graph, q, p0, la_f, pre, *, al, opt, has_laf,
-                        label_mode, interpret, state0=None,
-                        return_state=False):
-    """Whole-iteration fused Pallas loop (stencil graphs; no
-    reconditioning/monitoring — callers check).  Resumable: ``state0``
-    re-enters with the saved auxiliary pairs and evolution reference, so
-    a checkpointed long solve keeps the one-kernel rate."""
-    from ..ops.stencil_fused_simplex import fused_stencil_simplex_iteration
-
-    h, w = graph.field_shape
-    f = len(graph.shifts)
-    k = q.shape[-1]
-    dtype = q.dtype
-    vcount = graph.num_vertices
-
-    def tv(a):  # [V, K] -> [K, H, W]
-        return a.T.reshape(k, h, w)
-
-    def te(a):  # [E, K] (family-major E = F*V) -> [F, K, H, W]
-        return a.reshape(f, h * w, k).transpose(0, 2, 1).reshape(f, k, h, w)
-
-    if state0 is not None:
-        zu0, zv0 = state0.zu, state0.zv
-    else:
-        zu0, zv0 = graph.gather_endpoints(p0)
-    p3 = tv(p0)
-    q3 = tv(q)
-    laf3 = la_f.reshape(1, h, w) if has_laf else jnp.zeros((1, h, w), dtype)
-    ga3 = tv(pre.ga)
-    gap3 = tv(pre.ga_proj)
-    args_e = tuple(te(a) for a in (zu0, zv0, pre.wu, pre.wv, pre.w_d1u,
-                                   pre.w_d1v, pre.th_d1))
-    if state0 is not None:
-        prev = (state0.prev.T.reshape(-1, h, w) if not label_mode
-                else state0.prev.T.reshape(1, h, w))
-    elif label_mode:
-        prev = jnp.argmax(p3, axis=0).astype(dtype)[None]
-    else:
-        prev = p3
-
-    def cond(s):
-        p3, prev, zu, zv, dif, it = s
-        return jnp.logical_and(it < opt.it_max, dif >= opt.dif_tol)
-
-    def body(s):
-        p3, prev, zu, zv, dif, it = s
-        p3, prev, zu, zv, dif_sum = fused_stencil_simplex_iteration(
-            p3, q3, laf3, ga3, gap3, prev, zu, zv, *args_e[2:],
-            shifts=graph.shifts, rho=float(opt.rho), al=al,
-            has_laf=has_laf, label_mode=label_mode, interpret=interpret)
-        dif = dif_sum if label_mode else dif_sum / vcount
-        return p3, prev, zu, zv, dif, it + 1
-
-    state = (p3, prev,
-             args_e[0], args_e[1],
-             (state0.dif if state0 is not None
-              else jnp.asarray(max(opt.dif_tol, opt.dif_rcd), dtype)),
-             (state0.it if state0 is not None
-              else jnp.asarray(0, jnp.int32)))
-    p3, prev, zu, zv, dif, it = jax.lax.while_loop(cond, body, state)
-    p = p3.reshape(k, h * w).T
-    res = SimplexResult(p=p, it=it, obj=jnp.zeros((1,), dtype),
-                        dif=jnp.zeros((1,), dtype))
-    if return_state:
-        def ev(a):  # [F, K, H, W] -> [E, K]
-            return a.reshape(f, k, h * w).transpose(0, 2, 1).reshape(-1, k)
-
-        prev_flat = (prev.reshape(1, h * w).T if label_mode
-                     else prev.reshape(k, h * w).T)
-        return res, SimplexSolveState(
-            p=p, zu=ev(zu), zv=ev(zv), pre=pre, prev=prev_flat, dif=dif,
-            dif_rcd=jnp.asarray(0.0, dtype), it=it)
-    return res
-
-
-def _simplex_fused_loop_circulant(graph, q, p0, la_f, pre, *, al, opt,
-                                  has_laf, label_mode, interpret,
-                                  state0=None, return_state=False):
-    """Whole-iteration fused loop on a :class:`..circulant
-    .CirculantGraphD1`: the K-axis shift-family kernel
-    (:mod:`..ops.circulant_fused_simplex`).  State is carried in the
-    kernel's dense label-plane layout across iterations (one transform at
-    entry/exit), exactly as the stencil loop carries [K, H, W] planes."""
-    from ..ops.circulant_fused_simplex import (
-        fused_circulant_simplex_iteration)
-
-    nf = len(graph.offsets)
-    vv8 = graph.vv8
-    vv = vv8 * 128
-    v = graph.num_vertices
-    k = q.shape[-1]
-    dt = q.dtype
-    split = nf * vv
-
-    def tv(a):  # [V, n] vertex-major -> [n, VV8, 128] zero-padded planes
-        a = a.T
-        if vv > v:
-            a = jnp.concatenate(
-                [a, jnp.zeros((a.shape[0], vv - v), dt)], axis=1)
-        return a.reshape(-1, vv8, 128)
-
-    def fe(a):  # [E, K] family part -> [F, K, VV8, 128]
-        return (a[:split].reshape(nf, vv, k).transpose(0, 2, 1)
-                .reshape(nf, k, vv8, 128))
-
-    if state0 is not None:
-        zu0, zv0 = state0.zu, state0.zv
-        p0 = state0.p
-    else:
-        zu0, zv0 = graph.gather_endpoints(p0)
-    p3 = tv(p0)
-    q3 = tv(q)
-    laf2 = (tv(la_f[:, None])[0] if has_laf
-            else jnp.zeros((vv8, 128), dt))
-    ga3 = tv(pre.ga)
-    gap3 = tv(pre.ga_proj)
-    fam = tuple(fe(a) for a in (zu0, zv0, pre.wu, pre.w_d1u, pre.th_d1))
-    if graph.num_rem:
-        plan = graph.rem_graph.plan
-        t8 = plan.tile // 128
-
-        def re(a):  # [E, K] remainder part -> [K, nt*T8, 128]
-            return a[split:].T.reshape(k, plan.num_tiles * t8, 128)
-
-        rem = tuple(re(a) for a in (zu0, zv0, pre.wu, pre.wv, pre.w_d1u,
-                                    pre.w_d1v, pre.th_d1))
-        tile_idx = (plan.lur, plan.lul, plan.lvr, plan.lvl)
-        starts8 = plan.starts8
-        nt, tile, wd8 = plan.num_tiles, plan.tile, plan.wd8
-    else:
-        rem = (None,) * 7
-        tile_idx = (None,) * 4
-        starts8 = None
-        nt, tile, wd8 = 0, 0, 0
-
-    if state0 is not None:
-        prev = tv(state0.prev)
-    elif label_mode:
-        prev = tv(jnp.argmax(p0, axis=-1).astype(dt)[:, None])
-    else:
-        prev = p3
-
-    def cond(s):
-        dif, it = s[-2], s[-1]
-        return jnp.logical_and(it < opt.it_max, dif >= opt.dif_tol)
-
-    def body(s):
-        if nt:
-            p3, prev, zuf, zvf, zur, zvr, dif, it = s
-            p3, prev, zuf, zvf, zur, zvr, dif_sum = \
-                fused_circulant_simplex_iteration(
-                    graph.offs_dev, starts8, zuf, zvf, fam[2], fam[3],
-                    fam[4], *tile_idx, zur, zvr, *rem[2:],
-                    p3, q3, laf2, ga3, gap3, prev,
-                    nf=nf, vv8=vv8, nt=nt, tile=tile, wd8=wd8, k=k, nv=v,
-                    rho=float(opt.rho), al=al, has_laf=has_laf,
-                    label_mode=label_mode, interpret=interpret)
-            dif = dif_sum if label_mode else dif_sum / v
-            return p3, prev, zuf, zvf, zur, zvr, dif, it + 1
-        p3, prev, zuf, zvf, dif, it = s
-        p3, prev, zuf, zvf, _, _, dif_sum = \
-            fused_circulant_simplex_iteration(
-                graph.offs_dev, None, zuf, zvf, fam[2], fam[3], fam[4],
-                None, None, None, None, None, None, None, None, None,
-                None, None, p3, q3, laf2, ga3, gap3, prev,
-                nf=nf, vv8=vv8, nt=0, tile=0, wd8=0, k=k, nv=v,
-                rho=float(opt.rho), al=al, has_laf=has_laf,
-                label_mode=label_mode, interpret=interpret)
-        dif = dif_sum if label_mode else dif_sum / v
-        return p3, prev, zuf, zvf, dif, it + 1
-
-    dif0 = (state0.dif if state0 is not None
-            else jnp.asarray(max(opt.dif_tol, opt.dif_rcd), dt))
-    it0 = (state0.it if state0 is not None
-           else jnp.asarray(0, jnp.int32))
-    if nt:
-        state = (p3, prev, fam[0], fam[1], rem[0], rem[1], dif0, it0)
-        p3, prev, zuf, zvf, zur, zvr, dif, it = jax.lax.while_loop(
-            cond, body, state)
-    else:
-        state = (p3, prev, fam[0], fam[1], dif0, it0)
-        p3, prev, zuf, zvf, dif, it = jax.lax.while_loop(cond, body, state)
-
-    p = p3.reshape(k, vv)[:, :v].T
-    res = SimplexResult(p=p, it=it, obj=jnp.zeros((1,), dt),
-                        dif=jnp.zeros((1,), dt))
-    if return_state:
-        def fe_inv(a):  # [F, K, VV8, 128] -> [F*VV, K]
-            return (a.reshape(nf, k, vv).transpose(0, 2, 1)
-                    .reshape(nf * vv, k))
-
-        if nt:
-            zu_flat = jnp.concatenate(
-                [fe_inv(zuf), zur.reshape(k, -1).T])
-            zv_flat = jnp.concatenate(
-                [fe_inv(zvf), zvr.reshape(k, -1).T])
-        else:
-            zu_flat, zv_flat = fe_inv(zuf), fe_inv(zvf)
-        nprev = 1 if label_mode else k
-        prev_flat = prev.reshape(nprev, vv)[:, :v].T
-        return res, SimplexSolveState(
-            p=p, zu=zu_flat, zv=zv_flat, pre=pre, prev=prev_flat, dif=dif,
-            dif_rcd=jnp.asarray(0.0, dt), it=it)
-    return res
-
-
-def _fused_simplex_route(graph, k: int):
-    """Which fused whole-iteration loop (if any) serves this container."""
-    if getattr(graph, "supports_fused_simplex", None) is not None:
-        if graph.supports_fused_simplex(k):
-            return _simplex_fused_loop_circulant
-        return None
-    if getattr(graph, "supports_fused", False) \
-            and hasattr(graph, "field_shape"):
-        return _simplex_fused_loop
-    return None
-
-
 @partial(jax.jit, static_argnames=("al", "opt", "monitor", "has_laf",
                                    "return_state"))
 def _pfdr_simplex_impl(graph: GraphD1, q, p0, la_f, *, al: float,
@@ -462,39 +242,6 @@ def _pfdr_simplex_impl(graph: GraphD1, q, p0, la_f, *, al: float,
         p0 = state0.p
     else:
         pre = initial_precondition_simplex(al, laf, graph, q, p0, opt.rho)
-
-    # whole-iteration fused Pallas loop (stencil or circulant containers,
-    # no recondition / monitor / verbose — those run the staged path,
-    # which computes the same update): ~30 XLA dispatches per iteration
-    # collapse into one kernel
-    fused_loop = (_fused_simplex_route(graph, q.shape[-1])
-                  if opt.fused != "off" else None)
-    if (fused_loop is not None
-            and (monitor or opt.verbose != 0 or opt.dif_rcd != 0)
-            # only warn when the unmonitored run would actually take the
-            # fused route (same backend/dtype admission as below)
-            and (opt.fused == "on"
-                 or (jax.default_backend() == "tpu"
-                     and dtype == jnp.float32))):
-        import warnings
-        warnings.warn(
-            "monitor/verbose/dif_rcd forces the staged simplex PFDR loop; "
-            "production (unmonitored) runs use the fused whole-iteration "
-            "kernel, which is faster — do not compare timings across the "
-            "two", RuntimeWarning, stacklevel=2)
-    if (fused_loop is not None and opt.dif_rcd == 0 and not monitor
-            and opt.verbose == 0):
-        if opt.fused == "on":
-            return fused_loop(
-                graph, q, p0, la_f, pre, al=al, opt=opt, has_laf=has_laf,
-                label_mode=label_mode,
-                interpret=jax.default_backend() != "tpu",
-                state0=state0, return_state=return_state)
-        if jax.default_backend() == "tpu" and dtype == jnp.float32:
-            return fused_loop(
-                graph, q, p0, la_f, pre, al=al, opt=opt, has_laf=has_laf,
-                label_mode=label_mode, interpret=False,
-                state0=state0, return_state=return_state)
 
     rho = jnp.asarray(opt.rho, dtype)
     vcount = graph.vertex_count_global()

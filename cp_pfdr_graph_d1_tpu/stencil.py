@@ -1,13 +1,11 @@
 """Stencil (structured-grid) graph container: gather-free edge access.
 
-TPU VPUs have no hardware gather: ``x[eu]`` on a 40k-edge graph costs
-hundreds of microseconds (serial dynamic slices), while a shifted copy of a
-2-D field costs well under a microsecond.  Many graphs this library targets
-are structured — image grids, theta-phi sphere meshes (the EEG example),
-video volumes — with edge sets that are unions of constant-offset *shift
-families* over a field.  :class:`StencilGraphD1` represents such graphs
-explicitly: every endpoint gather becomes a ``jnp.roll`` and the
-edge->vertex accumulation becomes the inverse roll plus adds.
+Many graphs this library targets are structured — image grids, theta-phi
+sphere meshes (the EEG example), video volumes — with edge sets that are
+unions of constant-offset *shift families* over a field.
+:class:`StencilGraphD1` represents such graphs explicitly: every endpoint
+gather becomes a ``jnp.roll`` and the edge->vertex accumulation becomes the
+inverse roll plus adds — contiguous reads with no index arrays to load.
 
 Layout: vertices are the row-major cells of a ``(H, W)`` field; family
 ``f`` with offset ``(dy, dx)`` contributes one edge per cell ``(i, j)``
@@ -131,40 +129,6 @@ class StencilGraphD1(GraphD1):
         for k, (dy, dx) in enumerate(self.shifts):
             out = jnp.minimum(out, jnp.roll(vv[k], (dy, dx), axis=(0, 1)))
         return out.reshape((self.num_vertices,) + vals_u.shape[1:])
-
-    # -- fused TPU iteration -------------------------------------------------
-
-    @property
-    def supports_fused(self):
-        """True when the fused single-block Pallas iteration kernel applies
-        (vertex-sharded halo subclasses override to False)."""
-        from .ops.stencil_fused import max_fused_field_elems
-        return self.num_vertices <= max_fused_field_elems(len(self.shifts))
-
-    def fused_iteration(self, x, grad, pre, zu, zv, rho: float, vprox,
-                        interpret: bool):
-        """One fused edge+vertex PFDR step (see
-        :func:`..ops.stencil_fused.fused_stencil_iteration`)."""
-        from .ops.stencil_fused import fused_stencil_iteration
-        h, w = self.field_shape
-        f = len(self.shifts)
-
-        def rv(a):
-            return a.reshape(h, w)
-
-        def re(a):
-            return a.reshape(f, h, w)
-
-        xn, zun, zvn, num, den = fused_stencil_iteration(
-            rv(x), rv(grad), rv(pre.ga), rv(pre.th_l1),
-            re(zu), re(zv), re(pre.wu), re(pre.wv),
-            re(pre.w_d1u), re(pre.w_d1v), re(pre.th_d1),
-            shifts=self.shifts, rho=rho, vkind=vprox.kind,
-            positivity=vprox.positivity, lo=float(vprox.lo),
-            hi=float(vprox.hi), interpret=interpret)
-        e = self.num_edges
-        return (xn.reshape(-1), zun.reshape(e), zvn.reshape(e),
-                num, den)
 
     # -- pytree protocol ----------------------------------------------------
 

@@ -3,7 +3,7 @@
 The reference's only instrumentation is wall-clock ``Time[]``, objective
 ``Obj[]`` and evolution ``Dif[]`` arrays plus printf progress
 (``CP_PFDR_graph_quadratic_d1_l1.cpp:255-258,323-329``).  The solvers here
-return the same trace arrays; this module adds the TPU-side profiler hook.
+return the same trace arrays; this module adds the device profiler hook.
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ class StageProfiler:
 @contextlib.contextmanager
 def profile(log_dir: str):
     """Wraps a solve in a ``jax.profiler`` trace (view with TensorBoard or
-    xprof); the TPU equivalent of the reference's CLOCK_MONOTONIC timers."""
+    xprof); the device equivalent of the reference's CLOCK_MONOTONIC timers."""
     import jax
 
     jax.profiler.start_trace(log_dir)

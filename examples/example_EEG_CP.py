@@ -92,8 +92,8 @@ def dice_scores(x, x0):
 
 def make_stencil_graph(la_value, n_theta=110, n_phi=180):
     """The sphere mesh as a stencil: three shift families over the
-    theta-phi grid with the azimuthal axis wrapped — the gather-free TPU
-    fast path for this graph."""
+    theta-phi grid with the azimuthal axis wrapped — the gather-free
+    roll-based container for this graph."""
     import jax.numpy as jnp
 
     from cp_pfdr_graph_d1_tpu.stencil import StencilGraphD1

@@ -1,18 +1,21 @@
-"""Banded MXU gather/scatter graph container vs the plain COO container.
+"""Irregular (unstructured) graphs on the COO containers.
 
-The Pallas kernels run in interpreter mode here (CPU); the selection math
-is exact (one-hot dots), so results must match the plain container to
-rounding of the scatter's summation order.
+A grid plus random chords with shuffled labels: degrees vary, no stencil
+structure.  The incidence-gather :class:`GraphD1` and the scatter-add
+:class:`ScatterGraphD1` must move values exactly as numpy indexing and
+``np.add.at`` do, and a full PFDR solve on them must equal the float64
+native twin.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cp_pfdr_graph_d1_tpu import (DenseOp, GraphD1, PFDROptions, VertexProx,
-                                  pfdr_quadratic_d1)
-from cp_pfdr_graph_d1_tpu.banded_graph import BandedGraphD1
-from cp_pfdr_graph_d1_tpu.ops.banded import rcm_order
+from cp_pfdr_graph_d1_tpu import (DenseOp, GraphD1, PFDROptions,
+                                  pfdr_quadratic_d1, native)
+from cp_pfdr_graph_d1_tpu.circulant import rcm_order
+from cp_pfdr_graph_d1_tpu.graph import ScatterGraphD1
 
+from ._twins import VPROX_IDS, VPROXES, vprox_kwargs
 from .conftest import make_grid_graph
 
 
@@ -26,53 +29,45 @@ def irregular_graph(v=500, seed=0):
     eu = np.concatenate([eu, ceu])
     ev = np.concatenate([ev, cev])
     la = np.concatenate([la, 0.5 + r.random(extra)])
-    return eu, ev, la
+    shuf = r.permutation(v).astype(np.int32)
+    return shuf[eu], shuf[ev], la
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
-def test_banded_gather_matches_plain(dtype):
+def test_gather_matches_numpy(dtype):
     eu, ev, la = irregular_graph()
     v = 500
-    plain = GraphD1.create(eu, ev, la, num_vertices=v, dtype=dtype)
-    band = BandedGraphD1.create(eu, ev, la, num_vertices=v, dtype=dtype,
-                                tile=1024, mode="interpret")
     r = np.random.default_rng(1)
-    x = jnp.asarray(r.normal(size=v).astype(dtype))
-    bu, bv = band.gather_endpoints(x)
-    # compare on the banded graph's own (permuted, padded) edge list
-    xn = np.asarray(x)
-    np.testing.assert_allclose(np.asarray(bu), xn[np.asarray(band.eu)],
-                               rtol=0, atol=0)
-    np.testing.assert_allclose(np.asarray(bv), xn[np.asarray(band.ev)],
-                               rtol=0, atol=0)
-    # [V, K] variant
-    xk = jnp.asarray(r.normal(size=(v, 3)).astype(dtype))
-    bu, bv = band.gather_endpoints(xk)
-    np.testing.assert_allclose(np.asarray(bu),
-                               np.asarray(xk)[np.asarray(band.eu)],
-                               rtol=0, atol=0)
+    x = r.normal(size=(v, 3)).astype(dtype)
+    for cls in (GraphD1, ScatterGraphD1):
+        g = cls.create(eu, ev, la, num_vertices=v, dtype=dtype)
+        for xx in (x[:, 0], x):
+            gu, gv = g.gather_endpoints(jnp.asarray(xx))
+            np.testing.assert_array_equal(np.asarray(gu), xx[eu])
+            np.testing.assert_array_equal(np.asarray(gv), xx[ev])
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
-def test_banded_scatter_matches_plain(dtype):
+def test_scatter_matches_add_at(dtype):
     eu, ev, la = irregular_graph(seed=2)
     v = 500
-    band = BandedGraphD1.create(eu, ev, la, num_vertices=v, dtype=dtype,
-                                tile=1024, mode="interpret")
     r = np.random.default_rng(3)
-    e = band.num_edges
-    vu = jnp.asarray(r.normal(size=e).astype(dtype))
-    vv = jnp.asarray(r.normal(size=e).astype(dtype))
-    out = np.asarray(band.edge_to_vertex_sum(vu, vv))
-    ref = np.zeros(v, np.asarray(vu).dtype)
-    np.add.at(ref, np.asarray(band.eu), np.asarray(vu))
-    np.add.at(ref, np.asarray(band.ev), np.asarray(vv))
+    e = len(eu)
+    vu = r.normal(size=e).astype(dtype)
+    vv = r.normal(size=e).astype(dtype)
+    ref = np.zeros(v, np.float64)
+    np.add.at(ref, eu, vu.astype(np.float64))
+    np.add.at(ref, ev, vv.astype(np.float64))
     tol = 1e-12 if dtype == jnp.float64 else 1e-5
-    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+    for cls in (GraphD1, ScatterGraphD1):
+        g = cls.create(eu, ev, la, num_vertices=v, dtype=dtype)
+        out = np.asarray(g.edge_to_vertex_sum(jnp.asarray(vu),
+                                              jnp.asarray(vv)))
+        np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
 
 
-def test_banded_pfdr_matches_plain():
-    """Full PFDR solve on the banded container == plain container (f64)."""
+def test_pfdr_matches_native_twin():
+    """Full PFDR solve on both containers == the f64 native twin."""
     eu, ev, la = irregular_graph(seed=4)
     v = 500
     la = 0.15 * la
@@ -82,19 +77,18 @@ def test_banded_pfdr_matches_plain():
     x_true[r.integers(0, v, 12)] = 2.0
     y = a @ x_true + 0.02 * r.normal(size=40)
     lip = float(np.linalg.svd(a, compute_uv=False)[0] ** 2)
-    opt = PFDROptions(rho=1.3, dif_tol=1e-8, it_max=500)
-    kw = dict(la_l1=jnp.full((v,), 0.03), vprox=VertexProx(kind="l1"),
-              lipsch=lip, opt=opt)
-    base = pfdr_quadratic_d1(
-        DenseOp(jnp.asarray(a)), jnp.asarray(y),
-        GraphD1.create(eu, ev, la, num_vertices=v, dtype=jnp.float64), **kw)
-    band = pfdr_quadratic_d1(
-        DenseOp(jnp.asarray(a)), jnp.asarray(y),
-        BandedGraphD1.create(eu, ev, la, num_vertices=v, dtype=jnp.float64,
-                             tile=1024, mode="interpret"), **kw)
-    assert int(band.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(band.x), np.asarray(base.x),
-                               atol=1e-10)
+    la_l1 = np.full(v, 0.03)
+    x_ref, it_ref = native.pfdr_quadratic_d1_host(
+        40, a, y, eu, ev, la, la_l1=la_l1, lip_scal=lip, rho=1.3,
+        dif_tol=1e-8, it_max=500)
+    for cls in (GraphD1, ScatterGraphD1):
+        res = pfdr_quadratic_d1(
+            DenseOp(jnp.asarray(a)), jnp.asarray(y),
+            cls.create(eu, ev, la, num_vertices=v, dtype=jnp.float64),
+            la_l1=jnp.asarray(la_l1), vprox=VPROXES[0], lipsch=lip,
+            opt=PFDROptions(rho=1.3, dif_tol=1e-8, it_max=500))
+        assert int(res.it) == it_ref
+        np.testing.assert_allclose(np.asarray(res.x), x_ref, atol=1e-10)
 
 
 def test_rcm_reduces_bandwidth():
@@ -110,15 +104,9 @@ def test_rcm_reduces_bandwidth():
     assert bw_after < bw_before
 
 
-@pytest.mark.parametrize("vprox", [
-    VertexProx(kind="l1"),
-    VertexProx(kind="l1", positivity=True),
-    VertexProx(kind="bounds", lo=-0.5, hi=1.2),
-    VertexProx(kind="none"),
-])
-def test_banded_fused_matches_plain(vprox):
-    """The fused whole-iteration banded kernel (interpreted on CPU) must
-    produce the same solve as the plain container's unfused path."""
+@pytest.mark.parametrize("vprox", VPROXES, ids=VPROX_IDS)
+def test_irregular_pfdr_vertex_prox_matches_native(vprox):
+    """Every vertex-prox kind on the irregular graph == native twin."""
     eu, ev, la = irregular_graph(seed=8)
     v = 500
     la = 0.15 * la
@@ -126,21 +114,14 @@ def test_banded_fused_matches_plain(vprox):
     a = r.normal(size=(32, v)) / np.sqrt(32)
     y = a @ r.normal(size=v)
     lip = float(np.linalg.svd(a, compute_uv=False)[0] ** 2)
-    la_l1 = jnp.full((v,), 0.03) if vprox.kind == "l1" else None
-    kw = dict(la_l1=la_l1, vprox=vprox, lipsch=lip)
-    base = pfdr_quadratic_d1(
+    la_l1 = np.full(v, 0.03) if vprox.kind == "l1" else None
+    res = pfdr_quadratic_d1(
         DenseOp(jnp.asarray(a)), jnp.asarray(y),
         GraphD1.create(eu, ev, la, num_vertices=v, dtype=jnp.float64),
-        opt=PFDROptions(rho=1.4, dif_tol=1e-8, it_max=400, fused="off"),
-        **kw)
-    band = BandedGraphD1.create(eu, ev, la, num_vertices=v,
-                                dtype=jnp.float64, tile=1024,
-                                mode="interpret")
-    assert band.supports_fused
-    fused = pfdr_quadratic_d1(
-        DenseOp(jnp.asarray(a)), jnp.asarray(y), band,
-        opt=PFDROptions(rho=1.4, dif_tol=1e-8, it_max=400, fused="on"),
-        **kw)
-    assert int(fused.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(fused.x), np.asarray(base.x),
-                               atol=1e-10)
+        la_l1=None if la_l1 is None else jnp.asarray(la_l1), vprox=vprox,
+        lipsch=lip, opt=PFDROptions(rho=1.4, dif_tol=1e-8, it_max=400))
+    x_ref, it_ref = native.pfdr_quadratic_d1_host(
+        32, a, y, eu, ev, la, lip_scal=lip, rho=1.4, dif_tol=1e-8,
+        it_max=400, **vprox_kwargs(vprox, la_l1))
+    assert int(res.it) == it_ref
+    np.testing.assert_allclose(np.asarray(res.x), x_ref, atol=1e-10)

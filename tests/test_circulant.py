@@ -1,8 +1,7 @@
 """Circulant (shift-family) graph container vs the plain COO container.
 
-The fused Pallas kernel runs in interpreter mode here (CPU); family shifts
-are exact circular rolls, so solves must match the plain container to
-float64 rounding.
+The container only reorders and pads the edge set (inert weight-0 slots),
+so solves must match the plain container to float64 rounding.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -80,8 +79,8 @@ def test_scatter_matches_plain():
     VertexProx(kind="bounds", lo=-0.4, hi=1.1),
     VertexProx(kind="none"),
 ])
-def test_circulant_fused_matches_plain(vprox):
-    """Fused circulant solve (interpreted kernel) == plain unfused solve."""
+def test_circulant_matches_plain(vprox):
+    """Circulant solve (families + COO remainder) == plain COO solve."""
     eu, ev, la = mesh_graph(seed=4)
     v = 600
     la = 0.12 * la
@@ -90,22 +89,19 @@ def test_circulant_fused_matches_plain(vprox):
     y = a @ r.normal(size=v)
     lip = float(np.linalg.svd(a, compute_uv=False)[0] ** 2)
     la_l1 = jnp.full((v,), 0.03) if vprox.kind == "l1" else None
-    kw = dict(la_l1=la_l1, vprox=vprox, lipsch=lip)
+    kw = dict(la_l1=la_l1, vprox=vprox, lipsch=lip,
+              opt=PFDROptions(rho=1.4, dif_tol=1e-8, it_max=400))
     base = pfdr_quadratic_d1(
         DenseOp(jnp.asarray(a)), jnp.asarray(y),
-        GraphD1.create(eu, ev, la, num_vertices=v, dtype=jnp.float64),
-        opt=PFDROptions(rho=1.4, dif_tol=1e-8, it_max=400, fused="off"),
-        **kw)
+        GraphD1.create(eu, ev, la, num_vertices=v, dtype=jnp.float64), **kw)
     circ = CirculantGraphD1.create(eu, ev, la, num_vertices=v,
                                    dtype=jnp.float64, max_families=8,
                                    min_count=4)
-    assert circ.supports_fused and circ.num_rem > 0
-    fused = pfdr_quadratic_d1(
-        DenseOp(jnp.asarray(a)), jnp.asarray(y), circ,
-        opt=PFDROptions(rho=1.4, dif_tol=1e-8, it_max=400, fused="on"),
-        **kw)
-    assert int(fused.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(fused.x), np.asarray(base.x),
+    assert circ.num_rem > 0
+    res = pfdr_quadratic_d1(DenseOp(jnp.asarray(a)), jnp.asarray(y), circ,
+                            **kw)
+    assert int(res.it) == int(base.it)
+    np.testing.assert_allclose(np.asarray(res.x), np.asarray(base.x),
                                atol=1e-10)
 
 
@@ -122,37 +118,38 @@ def test_circulant_no_remainder():
     y = a @ r.normal(size=v)
     lip = float(np.linalg.svd(a, compute_uv=False)[0] ** 2)
     kw = dict(la_l1=jnp.full((v,), 0.02), vprox=VertexProx(kind="l1"),
-              lipsch=lip)
+              lipsch=lip, opt=PFDROptions(dif_tol=1e-9, it_max=400))
     base = pfdr_quadratic_d1(
         DenseOp(jnp.asarray(a)), jnp.asarray(y),
         GraphD1.create(eu, ev, 0.1, num_vertices=v, dtype=jnp.float64),
-        opt=PFDROptions(dif_tol=1e-9, it_max=400, fused="off"), **kw)
-    fused = pfdr_quadratic_d1(
-        DenseOp(jnp.asarray(a)), jnp.asarray(y), g,
-        opt=PFDROptions(dif_tol=1e-9, it_max=400, fused="on"), **kw)
-    assert int(fused.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(fused.x), np.asarray(base.x),
+        **kw)
+    res = pfdr_quadratic_d1(DenseOp(jnp.asarray(a)), jnp.asarray(y), g,
+                            **kw)
+    assert int(res.it) == int(base.it)
+    np.testing.assert_allclose(np.asarray(res.x), np.asarray(base.x),
                                atol=1e-10)
 
 
-def test_flat_shift_semantics():
-    """The roll-and-select _flat_shift (the SAME code the TPU executes, with
-    jnp.roll substituted for pltpu.roll only) equals a flat circular shift
-    for every wrap regime, including b=0, a=0, and full-wrap shifts."""
-    import jax
-
-    from cp_pfdr_graph_d1_tpu.ops.circulant_fused import _flat_shift
-
-    r, n = 8, 8 * 128
-    rng = np.random.default_rng(9)
-    m = jnp.asarray(rng.normal(size=(r, 128)))
-    for d in [0, 1, 127, 128, 129, 640, n - 1, n - 128, n - 129]:
-        a, b = d // 128, d % 128
-        got = jax.jit(_flat_shift, static_argnums=3)(
-            m, jnp.asarray(a, jnp.int32), jnp.asarray(b, jnp.int32), True)
-        want = jnp.roll(m.reshape(-1), -d).reshape(r, 128)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=0, atol=0, err_msg=f"shift {d}")
+def test_family_slots_are_flat_shifts():
+    """Family ``f``'s slot ``u`` is the edge ``(u, u + d_f)``: its endpoint
+    gather is the vertex field circularly shifted by the family offset,
+    with every empty slot at weight 0."""
+    eu, ev, la = mesh_graph(seed=9)
+    v = 600
+    g = CirculantGraphD1.create(eu, ev, la, num_vertices=v,
+                                dtype=jnp.float64, max_families=8,
+                                min_count=4)
+    x = jnp.asarray(np.random.default_rng(10).normal(size=v))
+    xu, xv = g.gather_endpoints(x)
+    la_g = np.asarray(g.la_d1)
+    for f, d in enumerate(g.offsets):
+        sl = slice(f * v, (f + 1) * v)
+        real = la_g[sl] != 0
+        np.testing.assert_array_equal(np.asarray(xu[sl])[real],
+                                      np.asarray(x)[real])
+        np.testing.assert_array_equal(np.asarray(xv[sl])[real],
+                                      np.roll(np.asarray(x), -d)[real])
+    assert g.num_edges == len(g.offsets) * v + g.num_rem
 
 
 def test_strip_order_concentrates_offsets():

@@ -1,11 +1,9 @@
-"""K-axis circulant fused kernel vs the staged multi-label PFDR path.
+"""Multi-label PFDR on the circulant container vs the plain COO container.
 
-The unstructured multi-label fast path (``ops/circulant_fused_simplex``):
-the fused circulant solve (interpreted kernel on CPU) must match the
-staged incidence-gather solve on the plain COO container to float64
-rounding — same math, different memory system.  Reference iteration being
-re-expressed: ``/root/reference/src/PFDR_graph_loss_d1_simplex.cpp:
-567-691``.
+The circulant container reorders the edges into shift families plus a COO
+remainder; the multi-label solve must match the plain container to float64
+rounding — same math, different edge order.  Reference iteration:
+``/root/reference/src/PFDR_graph_loss_d1_simplex.cpp:567-691``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -41,56 +39,52 @@ def run_pair(al, k=4, la_f=None, dif_tol=1e-7, it_max=300, rho=1.2,
              seed=0):
     eu, ev, la, q = mesh_problem(k=k, seed=seed)
     v = q.shape[0]
-    opt_st = PFDROptions(rho=rho, dif_tol=dif_tol, it_max=it_max,
-                         fused="off")
-    opt_fu = PFDROptions(rho=rho, dif_tol=dif_tol, it_max=it_max,
-                         fused="on")
+    opt = PFDROptions(rho=rho, dif_tol=dif_tol, it_max=it_max)
     kw = dict(al=al,
               la_f=None if la_f is None else jnp.asarray(la_f, jnp.float64))
     base = pfdr_loss_d1_simplex(
         GraphD1.create(eu, ev, la, num_vertices=v, dtype=jnp.float64),
-        jnp.asarray(q, jnp.float64), opt=opt_st, **kw)
+        jnp.asarray(q, jnp.float64), opt=opt, **kw)
     circ = CirculantGraphD1.create(eu, ev, la, num_vertices=v,
                                    dtype=jnp.float64, max_families=8,
                                    min_count=4)
-    assert circ.supports_fused_simplex(k) and circ.num_rem > 0
-    fused = pfdr_loss_d1_simplex(circ, jnp.asarray(q, jnp.float64),
-                                 opt=opt_fu, **kw)
-    return base, fused
+    assert circ.num_rem > 0
+    circ_res = pfdr_loss_d1_simplex(circ, jnp.asarray(q, jnp.float64),
+                                 opt=opt, **kw)
+    return base, circ_res
 
 
 @pytest.mark.parametrize("al", [0.0, 1.0, 0.2])
-def test_fused_circulant_simplex_matches_staged(al):
-    base, fused = run_pair(al)
-    assert int(fused.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(fused.p), np.asarray(base.p),
+def test_circulant_simplex_matches_coo(al):
+    base, circ_res = run_pair(al)
+    assert int(circ_res.it) == int(base.it)
+    np.testing.assert_allclose(np.asarray(circ_res.p), np.asarray(base.p),
                                atol=1e-9)
-    p = np.asarray(fused.p)
+    p = np.asarray(circ_res.p)
     np.testing.assert_allclose(p.sum(axis=1), 1.0, atol=1e-9)
     assert p.min() >= -1e-12
 
 
-def test_fused_circulant_simplex_vertex_weights():
+def test_circulant_simplex_vertex_weights():
     r = np.random.default_rng(3)
     la_f = r.uniform(0.5, 3.0, size=600)
-    base, fused = run_pair(1.0, la_f=la_f, seed=2)
-    assert int(fused.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(fused.p), np.asarray(base.p),
+    base, circ_res = run_pair(1.0, la_f=la_f, seed=2)
+    assert int(circ_res.it) == int(base.it)
+    np.testing.assert_allclose(np.asarray(circ_res.p), np.asarray(base.p),
                                atol=1e-9)
 
 
-def test_fused_circulant_simplex_label_mode():
+def test_circulant_simplex_label_mode():
     """dif_tol >= 1 switches to changed-ML-label stopping; counts must
-    agree between the two memory systems."""
-    base, fused = run_pair(0.2, k=3, dif_tol=1.0, it_max=150, seed=4)
-    assert int(fused.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(fused.p), np.asarray(base.p),
+    agree between the two containers."""
+    base, circ_res = run_pair(0.2, k=3, dif_tol=1.0, it_max=150, seed=4)
+    assert int(circ_res.it) == int(base.it)
+    np.testing.assert_allclose(np.asarray(circ_res.p), np.asarray(base.p),
                                atol=1e-9)
 
 
-def test_fused_circulant_simplex_no_remainder():
-    """Pure-grid offsets decompose remainder-free; the nt == 0 kernel
-    variant must agree with the staged path."""
+def test_circulant_simplex_no_remainder():
+    """Pure-grid offsets decompose remainder-free and agree with COO."""
     eu, ev, la = make_grid_graph(16, 16, seed=6)
     v, k = 256, 4
     r = np.random.default_rng(7)
@@ -104,17 +98,17 @@ def test_fused_circulant_simplex_no_remainder():
         GraphD1.create(eu, ev, 0.1 * la, num_vertices=v,
                        dtype=jnp.float64),
         jnp.asarray(q, jnp.float64), al=0.5,
-        opt=PFDROptions(dif_tol=1e-7, it_max=200, fused="off"))
-    fused = pfdr_loss_d1_simplex(
+        opt=PFDROptions(dif_tol=1e-7, it_max=200))
+    circ_res = pfdr_loss_d1_simplex(
         circ, jnp.asarray(q, jnp.float64), al=0.5,
-        opt=PFDROptions(dif_tol=1e-7, it_max=200, fused="on"))
-    assert int(fused.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(fused.p), np.asarray(base.p),
+        opt=PFDROptions(dif_tol=1e-7, it_max=200))
+    assert int(circ_res.it) == int(base.it)
+    np.testing.assert_allclose(np.asarray(circ_res.p), np.asarray(base.p),
                                atol=1e-9)
 
 
-def test_fused_circulant_simplex_resume():
-    """Kill/resume through the fused circulant loop is trajectory-exact."""
+def test_circulant_simplex_resume():
+    """Kill/resume on the circulant container is trajectory-exact."""
     eu, ev, la, q = mesh_problem(seed=8)
     v = q.shape[0]
     circ = CirculantGraphD1.create(eu, ev, la, num_vertices=v,
@@ -123,15 +117,14 @@ def test_fused_circulant_simplex_resume():
     qd = jnp.asarray(q, jnp.float64)
     full = pfdr_loss_d1_simplex(
         circ, qd, al=1.0,
-        opt=PFDROptions(dif_tol=0.0, it_max=120, fused="on"))
+        opt=PFDROptions(dif_tol=0.0, it_max=120))
     res1, st = pfdr_loss_d1_simplex(
         circ, qd, al=1.0,
-        opt=PFDROptions(dif_tol=0.0, it_max=60, fused="on"),
-        return_state=True)
+        opt=PFDROptions(dif_tol=0.0, it_max=60), return_state=True)
     assert int(res1.it) == 60
     res2 = pfdr_loss_d1_simplex(
         circ, qd, al=1.0,
-        opt=PFDROptions(dif_tol=0.0, it_max=120, fused="on"), state0=st)
+        opt=PFDROptions(dif_tol=0.0, it_max=120), state0=st)
     assert int(res2.it) == 120
     np.testing.assert_allclose(np.asarray(res2.p), np.asarray(full.p),
                                atol=1e-12)

@@ -489,18 +489,17 @@ def test_cp_sharded_dense_matches_single_device():
 
 
 # ---------------------------------------------------------------------------
-# halo-overlapped fused iteration (ops/halo_fused.py)
+# halo exchange through ppermute
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("shift_weights", [
     {(0, 1): 0.15, (1, 0): 0.15},
     {(0, 1): 0.1, (1, 0): 0.12, (2, 0): 0.05, (1, -1): 0.07},
 ])
-def test_halo_fused_matches_staged(shift_weights):
-    """The RDMA-overlapped halo kernel (make_async_remote_copy boundary
-    exchange overlapped with interior edge compute, SURVEY §5) must
-    reproduce the single-device staged iteration — incl. halo depth 2 and
-    negative-dx families."""
+def test_halo_ppermute_matches_single_device(shift_weights):
+    """The row-sharded halo PFDR (ppermute boundary exchange under
+    shard_map, SURVEY §5) must reproduce the single-device iteration —
+    incl. halo depth 2 and negative-dx families."""
     from cp_pfdr_graph_d1_tpu import DenseOp
     from cp_pfdr_graph_d1_tpu.parallel import (pfdr_quadratic_d1_halo,
                                                shard_stencil_problem)
@@ -515,14 +514,13 @@ def test_halo_fused_matches_staged(shift_weights):
     mesh = make_mesh(8)
     prob = shard_stencil_problem(a, y, sg, 8)
     vp = VertexProx(kind="l1", positivity=True)
+    opt = PFDROptions(rho=1.4, dif_tol=0.0, it_max=120)
 
-    res_halo = pfdr_quadratic_d1_halo(
-        prob, mesh, la_l1=la_l1, vprox=vp, lipsch=lip,
-        opt=PFDROptions(rho=1.4, dif_tol=0.0, it_max=120, fused="on"))
+    res_halo = pfdr_quadratic_d1_halo(prob, mesh, la_l1=la_l1, vprox=vp,
+                                      lipsch=lip, opt=opt)
     res_ref = pfdr_quadratic_d1(
         DenseOp(jnp.asarray(a)), jnp.asarray(y), sg,
-        la_l1=jnp.asarray(la_l1), vprox=vp, lipsch=lip,
-        opt=PFDROptions(rho=1.4, dif_tol=0.0, it_max=120, fused="off"))
+        la_l1=jnp.asarray(la_l1), vprox=vp, lipsch=lip, opt=opt)
     np.testing.assert_allclose(np.asarray(res_halo.x),
                                np.asarray(res_ref.x), atol=3e-5)
     assert int(res_halo.it) == int(res_ref.it)

@@ -238,12 +238,10 @@ def test_verbose_progress_prints_from_jitted_loop(capsys):
 
 
 def test_monitored_run_warns_on_staged_switch():
-    """Monitoring forces the staged loop when the whole-solve kernel would
-    otherwise run; the switch must be loud (monitoring contract, SURVEY
-    §2.5) and the traces must carry no garbage tails."""
+    """Monitoring runs the same single PFDR loop as an unmonitored solve:
+    there is no route switch to warn about, the iterate is unchanged, and
+    the traces carry no garbage tails (monitoring contract, SURVEY §2.5)."""
     import warnings
-
-    from cp_pfdr_graph_d1_tpu.banded_graph import BandedGraphD1
 
     r = np.random.default_rng(0)
     v = 256
@@ -252,19 +250,22 @@ def test_monitored_run_warns_on_staged_switch():
     la = np.full(v - 1, 0.2, np.float32)
     a = (r.standard_normal((16, v)) / 4).astype(np.float32)
     y = r.standard_normal(16).astype(np.float32)
-    g = BandedGraphD1.create(eu, ev, la, num_vertices=v,
-                             dtype=jnp.float32, round_wd8=True)
+    g = GraphD1.create(eu, ev, la, num_vertices=v, dtype=jnp.float32)
     lip = float(np.linalg.eigvalsh((a @ a.T).astype(np.float64))[-1])
-    opt = PFDROptions(rho=1.5, dif_tol=1e-6, it_max=50, fused="on")
+    opt = PFDROptions(rho=1.5, dif_tol=1e-6, it_max=50)
+    kw = dict(la_l1=jnp.full((v,), 0.01, jnp.float32),
+              vprox=VertexProx(kind="l1", positivity=True), lipsch=lip,
+              opt=opt)
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
-        res = pfdr_quadratic_d1(
-            DenseOp(jnp.asarray(a)), jnp.asarray(y), g,
-            la_l1=jnp.full((v,), 0.01, jnp.float32),
-            vprox=VertexProx(kind="l1", positivity=True), lipsch=lip,
-            opt=opt, monitor=True)
-    assert any("staged PFDR loop" in str(w.message) for w in rec), \
+        res = pfdr_quadratic_d1(DenseOp(jnp.asarray(a)), jnp.asarray(y), g,
+                                monitor=True, **kw)
+    assert not any("staged" in str(w.message) for w in rec), \
         [str(w.message) for w in rec]
+    plain = pfdr_quadratic_d1(DenseOp(jnp.asarray(a)), jnp.asarray(y), g,
+                              **kw)
+    assert int(plain.it) == int(res.it)
+    np.testing.assert_array_equal(np.asarray(plain.x), np.asarray(res.x))
     # trace hygiene: tails beyond it are zero, not loop residue
     it = int(res.it)
     obj = np.asarray(res.obj)

@@ -110,9 +110,9 @@ def test_cut_pursuit_on_stencil():
     VertexProx(kind="bounds", lo=-0.5, hi=0.8),
     VertexProx(),
 ])
-def test_fused_kernel_matches_jnp(vprox):
-    """The fused Pallas iteration (interpreted on CPU) must produce the
-    same solve as the unfused path: same iteration count, same iterates."""
+def test_stencil_pfdr_matches_coo(vprox):
+    """Every vertex-prox kind: the roll-based stencil solve equals the COO
+    incidence-gather solve (same iteration count, same iterate)."""
     sg, cg, keep = make_pair(seed=11, wrap=(False, True))
     v = sg.num_vertices
     r = np.random.default_rng(12)
@@ -120,38 +120,37 @@ def test_fused_kernel_matches_jnp(vprox):
     y = a @ r.normal(size=v)
     lip = float(np.linalg.svd(a, compute_uv=False)[0] ** 2)
     la_l1 = jnp.full((v,), 0.04) if vprox.kind == "l1" else None
-    base_opt = PFDROptions(rho=1.4, dif_tol=1e-9, it_max=700, fused="off")
-    fused_opt = PFDROptions(rho=1.4, dif_tol=1e-9, it_max=700, fused="on")
+    opt = PFDROptions(rho=1.4, dif_tol=1e-9, it_max=700)
     op = DenseOp(jnp.asarray(a))
     obs = jnp.asarray(y)
-    base = pfdr_quadratic_d1(op, obs, sg, la_l1=la_l1, vprox=vprox,
-                             lipsch=lip, opt=base_opt)
-    fused = pfdr_quadratic_d1(op, obs, sg, la_l1=la_l1, vprox=vprox,
-                              lipsch=lip, opt=fused_opt)
-    assert int(fused.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(fused.x), np.asarray(base.x),
-                               rtol=0, atol=1e-13)
+    r_s = pfdr_quadratic_d1(op, obs, sg, la_l1=la_l1, vprox=vprox,
+                            lipsch=lip, opt=opt)
+    r_c = pfdr_quadratic_d1(op, obs, cg, la_l1=la_l1, vprox=vprox,
+                            lipsch=lip, opt=opt)
+    assert int(r_s.it) == int(r_c.it)
+    np.testing.assert_allclose(np.asarray(r_s.x), np.asarray(r_c.x),
+                               rtol=0, atol=1e-10)
 
 
-def test_fused_kernel_wrapped_axes():
-    """Wrapped (periodic) fields exercise the kernel's circular shifts."""
+def test_stencil_wrapped_axes_match_coo():
+    """Wrapped (periodic) fields: the circular rolls equal the COO edges
+    that close each row and column."""
     sg, cg, keep = make_pair(seed=13, wrap=(True, True))
+    assert keep.all()
     v = sg.num_vertices
     r = np.random.default_rng(14)
     a = r.normal(size=(16, v)) / 4.0
     y = a @ r.normal(size=v)
     lip = float(np.linalg.svd(a, compute_uv=False)[0] ** 2)
     kw = dict(la_l1=jnp.full((v,), 0.03), vprox=VertexProx(kind="l1"),
-              lipsch=lip)
-    base = pfdr_quadratic_d1(DenseOp(jnp.asarray(a)), jnp.asarray(y), sg,
-                             opt=PFDROptions(dif_tol=1e-9, it_max=500,
-                                             fused="off"), **kw)
-    fused = pfdr_quadratic_d1(DenseOp(jnp.asarray(a)), jnp.asarray(y), sg,
-                              opt=PFDROptions(dif_tol=1e-9, it_max=500,
-                                              fused="on"), **kw)
-    assert int(fused.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(fused.x), np.asarray(base.x),
-                               rtol=0, atol=1e-13)
+              lipsch=lip, opt=PFDROptions(dif_tol=1e-9, it_max=500))
+    r_s = pfdr_quadratic_d1(DenseOp(jnp.asarray(a)), jnp.asarray(y), sg,
+                            **kw)
+    r_c = pfdr_quadratic_d1(DenseOp(jnp.asarray(a)), jnp.asarray(y), cg,
+                            **kw)
+    assert int(r_s.it) == int(r_c.it)
+    np.testing.assert_allclose(np.asarray(r_s.x), np.asarray(r_c.x),
+                               rtol=0, atol=1e-10)
 
 
 @pytest.mark.parametrize("al,label_mode,la_f", [
@@ -160,30 +159,23 @@ def test_fused_kernel_wrapped_axes():
     (0.5, False, None),
     (0.5, True, None),
 ])
-def test_fused_simplex_matches_jnp(al, label_mode, la_f):
-    """The fused multi-label Pallas iteration (interpreted on CPU) must
-    reproduce the unfused solve."""
-    from cp_pfdr_graph_d1_tpu.solvers.pfdr_simplex import pfdr_loss_d1_simplex
-
+def test_stencil_simplex_matches_coo(al, label_mode, la_f):
+    """Every loss and both stopping modes of the multi-label solve agree
+    between the stencil and COO containers."""
     sg, cg, keep = make_pair(seed=21, wrap=(False, True))
     v = sg.num_vertices
     k = 4
     r = np.random.default_rng(22)
     q = np.abs(r.normal(size=(v, k))) + 0.05
     q /= q.sum(1, keepdims=True)
-    laf = np.full(v, la_f) if la_f is not None else None
+    laf = jnp.asarray(np.full(v, la_f)) if la_f is not None else None
     dif_tol = 1.0 if label_mode else 1e-9
-    base = pfdr_loss_d1_simplex(
-        sg, jnp.asarray(q), al=al,
-        la_f=jnp.asarray(laf) if laf is not None else None,
-        opt=PFDROptions(rho=1.3, dif_tol=dif_tol, it_max=400, fused="off"))
-    fused = pfdr_loss_d1_simplex(
-        sg, jnp.asarray(q), al=al,
-        la_f=jnp.asarray(laf) if laf is not None else None,
-        opt=PFDROptions(rho=1.3, dif_tol=dif_tol, it_max=400, fused="on"))
-    assert int(fused.it) == int(base.it)
-    np.testing.assert_allclose(np.asarray(fused.p), np.asarray(base.p),
-                               rtol=0, atol=1e-12)
+    opt = PFDROptions(rho=1.3, dif_tol=dif_tol, it_max=400)
+    r_s = pfdr_loss_d1_simplex(sg, jnp.asarray(q), al=al, la_f=laf, opt=opt)
+    r_c = pfdr_loss_d1_simplex(cg, jnp.asarray(q), al=al, la_f=laf, opt=opt)
+    assert int(r_s.it) == int(r_c.it)
+    np.testing.assert_allclose(np.asarray(r_s.p), np.asarray(r_c.p),
+                               rtol=0, atol=1e-10)
 
 
 def test_edge_to_vertex_min_matches_coo():

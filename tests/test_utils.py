@@ -142,14 +142,14 @@ def test_simplex_inner_state_kill_resume(tmp_path):
 
 
 def test_whole_solve_kernel_resume_exact():
-    """A checkpointed whole-solve-kernel run resumes INSIDE the kernel
-    (not the ~20-dispatch staged loop) and reproduces the uninterrupted
-    trajectory bitwise (r05: the z state re-enters the kernel)."""
+    """A checkpointed solve on a scatter-accumulating COO graph (the
+    container of contracted graphs with hub components) resumes from its
+    state and reproduces the uninterrupted trajectory bitwise."""
     import jax.numpy as jnp
 
     from cp_pfdr_graph_d1_tpu import (DenseOp, PFDROptions, VertexProx,
                                       pfdr_quadratic_d1)
-    from cp_pfdr_graph_d1_tpu.banded_graph import BandedGraphD1
+    from cp_pfdr_graph_d1_tpu.graph import ScatterGraphD1
 
     r = np.random.default_rng(0)
     h = w = 24
@@ -162,30 +162,28 @@ def test_whole_solve_kernel_resume_exact():
                          idx[1:, :].ravel()]).astype(np.int32)
     a = (r.standard_normal((n, v)) / np.sqrt(n)).astype(np.float32)
     y = r.standard_normal(n).astype(np.float32)
-    bg = BandedGraphD1.create(eu, ev, np.full(eu.shape, 0.05, np.float32),
-                              num_vertices=v, dtype=jnp.float32,
-                              round_wd8=True)
+    sg = ScatterGraphD1.create(eu, ev, np.full(eu.shape, 0.05, np.float32),
+                               num_vertices=v, dtype=jnp.float32)
     lip = float(np.linalg.svd(a, compute_uv=False)[0] ** 2)
     kw = dict(la_l1=jnp.full((v,), 0.02, jnp.float32),
               vprox=VertexProx(kind="l1", positivity=True), lipsch=lip)
     op = DenseOp(jnp.asarray(a))
     full = pfdr_quadratic_d1(
-        op, jnp.asarray(y), bg, **kw,
-        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=200, fused="on"))
+        op, jnp.asarray(y), sg, **kw,
+        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=200))
     _, st = pfdr_quadratic_d1(
-        op, jnp.asarray(y), bg, **kw,
-        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=80, fused="on"),
+        op, jnp.asarray(y), sg, **kw,
+        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=80),
         return_state=True)
     rest = pfdr_quadratic_d1(
-        op, jnp.asarray(y), bg, **kw,
-        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=200, fused="on"),
-        state0=st)
+        op, jnp.asarray(y), sg, **kw,
+        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=200), state0=st)
     assert int(rest.it) == int(full.it) == 200
     np.testing.assert_array_equal(np.asarray(rest.x), np.asarray(full.x))
 
 
 def test_simplex_fused_resume_exact():
-    """Same contract for the multi-label fused whole-iteration loop."""
+    """Same contract for the multi-label loop on a stencil graph."""
     import jax.numpy as jnp
 
     from cp_pfdr_graph_d1_tpu import PFDROptions
@@ -201,14 +199,14 @@ def test_simplex_fused_resume_exact():
     q = r.dirichlet(np.full(4, 0.7), size=v).astype(np.float32)
     full = pfdr_loss_d1_simplex(
         sg, jnp.asarray(q), al=1.0,
-        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=120, fused="on"))
+        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=120))
     _, st = pfdr_loss_d1_simplex(
         sg, jnp.asarray(q), al=1.0,
-        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=50, fused="on"),
+        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=50),
         return_state=True)
     rest = pfdr_loss_d1_simplex(
         sg, jnp.asarray(q), al=1.0,
-        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=120, fused="on"),
+        opt=PFDROptions(rho=1.5, dif_tol=0.0, it_max=120),
         state0=st)
     assert int(rest.it) == int(full.it) == 120
     np.testing.assert_array_equal(np.asarray(rest.p), np.asarray(full.p))
